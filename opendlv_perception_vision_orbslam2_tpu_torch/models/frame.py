@@ -49,6 +49,6 @@ class FrameState(NamedTuple):
 def features_scale_sigma2(features: Features, scale_factor: float):
     """Per-feature sigma^2 = scale^(2*octave) (reference keeps per-level
     tables, include/orbframe.hpp:176-181)."""
-    base = torch.tensor(scale_factor, dtype=torch.float32,
-                        device=features.octave.device)
+    base = torch.full((), scale_factor, dtype=torch.float32,
+                      device=features.octave.device)
     return torch.pow(base, 2.0 * features.octave.to(torch.float32))

@@ -135,13 +135,17 @@ def init_state(first_frame: FrameState) -> TrackState:
 
 class StereoVisualOdometry:
     """Host-side loop around :func:`vo_step`: stereo initialization and
-    lost bookkeeping, on an explicit ``device``.  The EPnP-RANSAC sets are
-    drawn from a generator seeded with 0, as the reference fixes PRNGKey(0)."""
+    lost bookkeeping, on an explicit ``device``.  Each frame's EPnP-RANSAC
+    sets are drawn from a generator re-seeded with the constant ``seed``
+    just before the draw, as the reference draws each frame with a fresh
+    ``PRNGKey(0)``: a frame's draw depends on that frame alone."""
 
     def __init__(self, config: SystemConfig, device="cpu"):
         self.config = config
         self.device = torch.device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(0)
+        #: the constant the per-frame RANSAC generator is re-seeded with
+        self.seed = 0
+        self.generator = torch.Generator(device=self.device)
         self.state: TrackState | None = None
         self.trajectory: list = []
         self.lost = False
@@ -164,6 +168,7 @@ class StereoVisualOdometry:
             self.trajectory.append(self.state.T_cw)
             return self.state.T_cw
 
+        self.generator.manual_seed(self.seed)
         self.state, T_new = vo_step(self.state, img_left, img_right, self.config,
                                     timestamp, self.generator)
         self.lost = int(self.state.n_inliers) < MIN_INLIERS_POSE

@@ -30,6 +30,18 @@ def hamming_matrix(a, b):
     return (pa + pb - 2.0 * dot).to(torch.int32)
 
 
+def popcount32(x):
+    """Per-element popcount of ``int32`` bit patterns (``lax.population_count``
+    on the reference's uint32), SWAR with the sign bit masked off after each
+    arithmetic shift; no step overflows int32."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
+
+
 def rotation_consistency_mask(angle_a, angle_b, matched, valid,
                               histo_len: int = 30, window_bins: int = 2):
     """Keep only matches whose angle difference lies within ``+-window_bins``

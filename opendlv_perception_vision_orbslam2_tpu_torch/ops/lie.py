@@ -1,7 +1,8 @@
 """SE(3) operations and the pinhole camera on batched ``[..., 4, 4]`` tensors.
 
-Counterpart of the SE3 subset of the reference package's ``ops/lie.py`` that
-the VO slice calls (Sim3 and triangulation come with the mapping slice).
+Counterpart of the reference package's ``ops/lie.py``: the SE3 subset, pose
+re-orthonormalization and the closed-form DLT triangulation (Sim3 comes with
+the loop-closing slice).
 
 Conventions:
 - SE3 tangent ``xi = [rho(3), phi(3)]`` (translation part first, like g2o).
@@ -75,8 +76,9 @@ def make_T(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    # built on the device: a host tensor here would cost a synced copy
+    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -113,3 +115,74 @@ def backproject(uv, depth, fx, fy, cx, cy):
     x = (uv[..., 0] - cx) / fx * depth
     y = (uv[..., 1] - cy) / fy * depth
     return torch.stack([x, y, depth], dim=-1)
+
+
+def orthonormalize_T(T):
+    """Project the rotation block back onto SO(3) (Gram-Schmidt columns) and
+    return the cleaned SE(3): long chains of pose compositions accumulate
+    scale in R, which ``inv_T`` assumes away."""
+    R = T[..., :3, :3]
+    x = R[..., :, 0]
+    x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+    y = R[..., :, 1]
+    y = y - torch.sum(x * y, dim=-1, keepdim=True) * x
+    y = y / (torch.linalg.vector_norm(y, dim=-1, keepdim=True) + 1e-12)
+    z = torch.linalg.cross(x, y, dim=-1)
+    R_o = torch.stack([x, y, z], dim=-1)
+    return torch.cat([torch.cat([R_o, T[..., :3, 3:]], dim=-1), T[..., 3:, :]], dim=-2)
+
+
+def det3(R):
+    """Closed-form determinant of ``[..., 3, 3]`` (no LU, no host sync)."""
+    return (R[..., 0, 0] * (R[..., 1, 1] * R[..., 2, 2] - R[..., 1, 2] * R[..., 2, 1])
+            - R[..., 0, 1] * (R[..., 1, 0] * R[..., 2, 2] - R[..., 1, 2] * R[..., 2, 0])
+            + R[..., 0, 2] * (R[..., 1, 0] * R[..., 2, 1] - R[..., 1, 1] * R[..., 2, 0]))
+
+
+def _inv3x3_sym(B):
+    """Closed-form inverse of batched symmetric 3x3 (adjugate / det)."""
+    a, b, c = B[..., 0, 0], B[..., 0, 1], B[..., 0, 2]
+    e, f = B[..., 1, 1], B[..., 1, 2]
+    i = B[..., 2, 2]
+    A11 = e * i - f * f
+    A12 = c * f - b * i
+    A13 = b * f - c * e
+    A22 = a * i - c * c
+    A23 = c * b - a * f
+    A33 = a * e - b * b
+    det = a * A11 + b * A12 + c * A13
+    det = torch.where(torch.abs(det) < 1e-18, torch.full_like(det, 1e-18), det)
+    adj = torch.stack(
+        [
+            torch.stack([A11, A12, A13], -1),
+            torch.stack([A12, A22, A23], -1),
+            torch.stack([A13, A23, A33], -1),
+        ],
+        dim=-2,
+    )
+    return adj / det[..., None, None]
+
+
+def triangulate_linear(P1, P2, uv1, uv2):
+    """DLT triangulation of pixel pairs under 3x4 projections ``P1, P2``
+    (OrbInitializer::Triangulate, reference: src/orbinitializer.cpp:732-745),
+    as the inhomogeneous DLT with w = 1 solved through its 3x3 normal
+    equations in closed form: elementwise math, no batched SVD.
+    uv: ``[..., N, 2]``; returns ``[..., N, 3]`` world points."""
+    def rows(P, uv):
+        return torch.stack(
+            [
+                uv[..., 0, None] * P[..., 2, :] - P[..., 0, :],
+                uv[..., 1, None] * P[..., 2, :] - P[..., 1, :],
+            ],
+            dim=-2,
+        )
+
+    A = torch.cat([rows(P1[..., None, :, :], uv1), rows(P2[..., None, :, :], uv2)], dim=-2)
+    # row normalization keeps the normal equations well-scaled
+    A = A / (torch.linalg.vector_norm(A, dim=-1, keepdim=True) + 1e-12)
+    M = A[..., :3]
+    b = A[..., 3]
+    MtM = torch.einsum("...ri,...rj->...ij", M, M)
+    Mtb = torch.einsum("...ri,...r->...i", M, b)
+    return -torch.einsum("...ij,...j->...i", _inv3x3_sym(MtM), Mtb)

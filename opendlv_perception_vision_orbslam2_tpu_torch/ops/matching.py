@@ -62,7 +62,7 @@ def search_by_projection(
     )
     proj_ur = uv[:, 0] - bf / torch.clamp(z, min=0.1)
 
-    sf = torch.tensor(scale_factor, dtype=torch.float32, device=p_w.device)
+    sf = torch.full((), scale_factor, dtype=torch.float32, device=p_w.device)
     radius = radius_th * torch.pow(sf, src_octave.to(torch.float32))
 
     d_uv = dst_features.xy[None, :, :] - uv[:, None, :]

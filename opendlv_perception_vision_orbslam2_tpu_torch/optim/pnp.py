@@ -103,7 +103,7 @@ def _epnp_single(p_w, uv, fx, fy, cx, cy):
     p_c = torch.where(flip[..., None, None], -p_c, p_c)
 
     R, t = _polar_rt(p_w, p_c)
-    nan = torch.tensor(float("nan"), dtype=dt, device=dev)
+    nan = torch.full((), float("nan"), dtype=dt, device=dev)
     R = torch.where(ok[..., None, None], R, nan)
     t = torch.where(ok[..., None], t, nan)
     return R, t

@@ -1,10 +1,11 @@
 """Carry tracker state between the reference package and the port.
 
 The system has no learned weights: its state is the numpy-built constant
-tables (rebuilt identically on both sides) and the tracker state
-``TrackState(T_cw, velocity, last_frame: FrameState, n_inliers)``.  These two
-functions move that state across as numpy arrays, so a test can start the
-port from the reference tracker's state and compare frame by frame.
+tables (rebuilt identically on both sides), the tracker state
+``TrackState(T_cw, velocity, last_frame: FrameState, n_inliers)`` and the
+map ``MapState``.  These two functions move that state across as numpy
+arrays, so a test can start the port from the reference's state and compare
+step by step.
 """
 
 from __future__ import annotations
@@ -13,14 +14,16 @@ import numpy as np
 import torch
 
 from ..models.frame import Features, FrameState
+from ..models.map_state import MapState
 from ..models.tracking import TrackState
 
-_TYPES = {cls.__name__: cls for cls in (Features, FrameState, TrackState)}
+_TYPES = {cls.__name__: cls for cls in (Features, FrameState, TrackState, MapState)}
+_DESC_FIELDS = {"Features": ("desc",), "MapState": ("kf_desc", "pt_desc")}
 
 
 def from_jax_numpy(tree, device="cpu"):
-    """Reference-package ``Features`` / ``FrameState`` / ``TrackState``
-    (numpy or array-like leaves) -> the port's NamedTuples of
+    """Reference-package ``Features`` / ``FrameState`` / ``TrackState`` /
+    ``MapState`` (numpy or array-like leaves) -> the port's NamedTuples of
     tensors on ``device``.  ``uint32`` leaves (descriptors) become the
     ``int32`` tensors with the same bits."""
     if hasattr(tree, "_fields"):
@@ -34,10 +37,11 @@ def from_jax_numpy(tree, device="cpu"):
 
 def to_numpy(tree):
     """Inverse of :func:`from_jax_numpy`: the same NamedTuples with numpy
-    leaves; ``Features.desc`` comes back as ``uint32``."""
+    leaves; descriptors (``Features.desc``, ``MapState.kf_desc/pt_desc``)
+    come back as ``uint32``."""
     if hasattr(tree, "_fields"):
         out = {f: to_numpy(getattr(tree, f)) for f in tree._fields}
-        if isinstance(tree, Features):
-            out["desc"] = out["desc"].view(np.uint32)
+        for f in _DESC_FIELDS.get(type(tree).__name__, ()):
+            out[f] = out[f].view(np.uint32)
         return type(tree)(**out)
     return tree.detach().cpu().numpy()

@@ -38,8 +38,13 @@ for name in names:
 import chip_smoke
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert not any(m.startswith("opendlv_perception_vision_orbslam2_tpu.") for m in sys.modules)
-print(len(names))
+print(" ".join(names))
 """
+
+# the SLAM slice's modules, which the walk above must reach
+SLAM_MODULES = ("models.map_state", "models.triangulation", "models.fusion",
+                "models.local_mapping", "models.slam", "optim.ba", "optim.ba_grid",
+                "ops.indexing")
 
 
 def test_port_imports_no_jax():
@@ -47,7 +52,9 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20   # every module of the port was imported
+    names = set(res.stdout.split())
+    assert len(names) >= 28   # every module of the port was imported
+    assert {f"{PORT.name}.{m}" for m in SLAM_MODULES} <= names
 
 
 @pytest.mark.parametrize("name", ["config.py", "trajectory.py"])

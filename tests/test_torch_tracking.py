@@ -290,6 +290,35 @@ def test_vo_slice_matches_reference_per_frame(sequence, reference_run, monkeypat
         assert abs(int(vo.state.n_inliers) - n_ref) <= 0.03 * n_ref, f"frame {i}"
 
 
+def test_vo_draw_depends_on_the_frame_alone(sequence, monkeypatch):
+    """The same state and frame, fed twice, draw the same RANSAC sets and
+    give the same pose: each frame re-seeds the generator with the constant
+    ``seed``, as the reference draws each frame with a fresh PRNGKey(0)."""
+    lefts, rights, _, _ = sequence
+    drawn = []
+    real = tpnp.sample_sets
+
+    def record(valid, generator, n_hypotheses=tpnp.N_HYPOTHESES):
+        idx = real(valid, generator, n_hypotheses)
+        drawn.append((valid.clone(), idx.clone()))
+        return idx
+
+    monkeypatch.setattr(tpnp, "sample_sets", record)
+    vo = ttrack.StereoVisualOdometry(TCFG, device="cpu")
+    for i in range(3):
+        vo.process(lefts[i], rights[i], timestamp=i * 0.1)
+    state = vo.state
+    T_a = vo.process(lefts[3], rights[3], timestamp=0.3)
+    vo.state = state
+    T_b = vo.process(lefts[3], rights[3], timestamp=0.3)
+    (valid_a, sets_a), (valid_b, sets_b) = drawn[-2:]
+    assert torch.equal(valid_a, valid_b)
+    assert torch.equal(sets_a, sets_b)
+    assert torch.equal(T_a, T_b)
+    fresh = real(valid_a, torch.Generator().manual_seed(vo.seed))
+    assert torch.equal(sets_a, fresh)
+
+
 def test_port_vo_accuracy_bound(sequence):
     """The port end to end (own pyramid and blur) on the 12-frame fixture."""
     lefts, rights, gt, _ = sequence
