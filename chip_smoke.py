@@ -8,16 +8,23 @@ and the final line is not printed:
 
 1. device: requires CUDA, prints nvidia-smi's name and power limit;
 2. build: builds both CUDA kernels from ``csrc/`` with nvcc;
-3. fast_nms kernel vs its plain version, bit for bit, on all 8 pyramid
-   levels of both eyes of a rendered KITTI-size frame and on a uniform
-   random 376x1241 image at thresholds 7 and 20, plus both times: device
-   time from a CUDA-graph replay, and wall time per call;
-4. gather_patches kernel vs its plain version, bit for bit, on the frame's
-   ORB atlas (45x45, N = 4000), the two stereo SAD gathers (11x11 and
-   11x21, N = 2048) and out-of-range starts that must clip, plus both times;
+3. the fast_nms kernel vs its plain version, bit for bit: one
+   ``fast_nms_pyramid`` launch over all 8 levels of both eyes of a rendered
+   KITTI-size frame, of uniform random and of integer-valued 376x1241
+   pairs, at thresholds 0, 7 and 20, and ``fast_nms`` on one image; then,
+   per level and per frame, the device time (CUDA-graph replay), the bound,
+   the share of it, the plain version's time and the share of candidates
+   (pixels that pass the compass test);
+4. the gather_patches kernel vs its plain version, bit for bit, at the
+   frame's main-path sites: ORB atlas (45x45, N = 4000), SAD windows 11x11
+   and strips 11x21 (N = 2048, ``gather_patches`` and one
+   ``gather_patches_multi`` launch), and out-of-range starts that must
+   clip; then per site the device time, bound, share, the one-call
+   ``unfold`` yardstick (``library``) and the plain version's time;
 5. the VO slice at KITTI size (1241x376, 2000 features, 8 levels) over the
    24-frame sequence bench.py renders: never lost, and the launch counters
-   show 8 FAST and 3 gather launches per frame;
+   show 1 FAST (``fast_nms_pyramid``) and 2 gather launches
+   (``gather_patches``, ``gather_patches_multi``) per frame;
 6. where the VO time goes: front end vs tracking per frame, and the
    device's busy time and idle share from torch.profiler;
 7. the KITTI-size ATE over EPnP-RANSAC draws (the constant per-frame seed
@@ -26,7 +33,7 @@ and the final line is not printed:
 9. stereo SLAM (``StereoSlam`` without loop closing or relocalization) at
    KITTI size over the same 24 frames, in the production asynchronous
    mode: never lost, finite poses, >= 5 keyframes (so local BA and keyframe
-   culling ran), and 8 FAST + 3 gather launches per frame; prints frames/s,
+   culling ran), and 1 FAST + 2 gather launches per frame; prints frames/s,
    ms/frame, keyframes, map points, capacities, peak device memory and the
    ATE (not gated);
 10. where the SLAM time goes: ``track_frame_with_map``, ``insert_stage`` and
@@ -37,7 +44,8 @@ and the final line is not printed:
     frames 512x256, never lost, >= 2 keyframes, > 100 points, ATE < 0.10 m,
     > 30 points triangulated beyond th_far with median relative error < 0.04.
 
-Then one JSON line of kernel results, the nvidia-smi line, and the last line
+Then one JSON line of kernel results (each kernel's per-frame numbers and
+its sites), the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports no jax.
 """
 
@@ -47,12 +55,164 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPLACES = {
     "fast_nms": "opendlv_perception_vision_orbslam2_tpu/ops/fast_pallas.py:98",
     "gather_patches": "opendlv_perception_vision_orbslam2_tpu/ops/gather_pallas.py:42",
 }
+
+
+# NVIDIA H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FAST+NMS operations: every pixel takes the compass test (4 subtract + 8
+# compare) and the 3x3 NMS (8 max + 1 compare); every polarity that passes
+# the compass test takes 16 subtract and the 9-arc tree (64 min + 15 max).
+FAST_OPS_PER_PIXEL = 21
+FAST_OPS_PER_POLARITY = 95
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """``(ms, "bytes" | "operations")``: the least time the card could take,
+    the larger of bytes over the HBM rate and operations over the float32
+    rate."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / FP32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fast_work(levels, threshold: float):
+    """``(bytes, ops, candidate share per level)`` of FAST+NMS over
+    ``levels`` ``[B, H, W]``: each image read once and each map written
+    once; the operations this data needs with the compass early-out
+    (``ops/fast.py::compass_test``); the share of pixels that pass it for
+    either polarity."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops.fast import compass_test
+
+    n_bytes = n_ops = 0
+    shares = []
+    for lv in levels:
+        bright, dark = compass_test(lv, threshold)
+        n_bytes += 8 * lv.numel()
+        n_ops += (FAST_OPS_PER_PIXEL * lv.numel()
+                  + FAST_OPS_PER_POLARITY * int(bright.sum() + dark.sum()))
+        shares.append(float((bright | dark).float().mean()))
+    return n_bytes, n_ops, shares
+
+
+def gather_bytes(jobs) -> int:
+    """Bytes of window gathers ``(img, y0, x0, ph, pw)``: each window
+    written once, each image pixel that some (clipped) window covers read
+    once, and the int32 starts read once."""
+    import torch
+
+    n_bytes = 0
+    for img, y0, x0, ph, pw in jobs:
+        H, W = img.shape
+        y = torch.clamp(y0.long(), 0, H - ph)
+        x = torch.clamp(x0.long(), 0, W - pw)
+        corners = torch.zeros((H + 1) * (W + 1), dtype=torch.int64, device=img.device)
+        for dy, dx, sign in ((0, 0, 1), (0, pw, -1), (ph, 0, -1), (ph, pw, 1)):
+            corners.index_add_(0, (y + dy) * (W + 1) + x + dx,
+                               torch.full_like(y, sign))
+        cover = corners.view(H + 1, W + 1).cumsum(0).cumsum(1)[:H, :W] > 0
+        n = y0.shape[0]
+        n_bytes += 4 * int(cover.sum()) + 4 * n * ph * pw + 8 * n
+    return n_bytes
+
+
+def unfold_gather(img, y0, x0, ph: int, pw: int):
+    """The one-call PyTorch yardstick of a window gather, starts clipped
+    first: returns the call (timed) that indexes a double ``unfold`` view."""
+    import torch
+
+    H, W = img.shape
+    y = torch.clamp(y0.long(), 0, H - ph)
+    x = torch.clamp(x0.long(), 0, W - pw)
+    view = img.unfold(0, ph, 1).unfold(1, pw, 1)
+    return lambda: view[y, x]
+
+FAST_THRESHOLDS = (0.0, 7.0, 20.0)
+# each kernel's wrappers, whose launch counters add up to the kernel's
+KERNEL_WRAPPERS = {"fast_nms": ("fast_nms", "fast_nms_pyramid"),
+                   "gather_patches": ("gather_patches", "gather_patches_multi")}
+
+
+def _wrappers():
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops import fast_kernel, gather_kernel
+
+    mods = {"fast_nms": fast_kernel, "gather_patches": gather_kernel}
+    return {w: getattr(mods[k], w) for k, ws in KERNEL_WRAPPERS.items() for w in ws}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def per_frame(counts: dict, n_frames: int) -> str:
+    return ", ".join(f"{name} {v / n_frames:g}" for name, v in counts.items())
+
+
+def kernel_launches(counts: dict, kernel: str) -> int:
+    return sum(counts[w] for w in KERNEL_WRAPPERS[kernel])
+
+
+def record_sites(cfg, left, right):
+    """Run ``process_stereo`` once on ``left``/``right`` and return the main
+    path's kernel inputs ``(levels, threshold, orb_job, sad_jobs)``, a job
+    being ``(img, y0, x0, ph, pw)``."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import extractor, frontend
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops import stereo
+
+    rec = {}
+    hooks = (
+        (extractor, "fast_nms_pyramid", lambda levels, th: rec.update(levels=levels, th=th)),
+        (extractor, "gather_patches", lambda *job: rec.update(orb=job)),
+        (stereo, "gather_patches_multi", lambda jobs: rec.update(sad=list(jobs))),
+    )
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in hooks]
+    for (mod, name, fn), (_, _, hook) in zip(saved, hooks):
+        setattr(mod, name, lambda *a, _fn=fn, _hook=hook: (_hook(*a), _fn(*a))[1])
+    try:
+        frontend.process_stereo(left, right, cfg, 0.0)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return list(rec["levels"]), rec["th"], tuple(rec["orb"]), [tuple(j) for j in rec["sad"]]
+
+
+def site_row(site: str, launches: int, ms: float, plain_ms: float, n_bytes: int, n_ops: int,
+             library_ms, **extra) -> dict:
+    """One call site's numbers: device ms, its bound and share of it, the
+    plain version's and the one-call yardstick's device ms."""
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    return dict(site=site, launches_per_frame=launches, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                share_of_bound=b_ms / ms, plain_ms=plain_ms, library_ms=library_ms,
+                bytes=n_bytes, ops=n_ops, **extra)
+
+
+def kernel_fields(row: dict) -> dict:
+    return {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+
+def fmt_site(kernel: str, row: dict) -> str:
+    lib = f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None else "none"
+    extra = f" | candidate share {row['candidate_share']}" if "candidate_share" in row else ""
+    if row.get("baseline_ms") is not None:
+        extra += (f" | baseline {row['baseline_ms']:.4f} ms in {row['baseline_launches']} "
+                  f"launch(es)")
+    return (f"  {kernel} {row['site']}: {row['ms']:.4f} ms device, "
+            f"{row['launches_per_frame']} launch(es) a frame | bound "
+            f"{1e3 * row['bound_ms']:.2f} us ({row['bound_by']}; {row['bytes'] / 1e6:.2f} MB, "
+            f"{row['ops'] / 1e6:.1f} M ops) | share of bound {row['share_of_bound']:.3f} | "
+            f"library {lib} | plain {row['plain_ms']:.4f} ms{extra}")
 
 
 def wall_ms(fn, iters: int = 20) -> float:
@@ -226,13 +386,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from opendlv_perception_vision_orbslam2_tpu_torch.models import extractor, tracking
     from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as slam_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import tracking
     from opendlv_perception_vision_orbslam2_tpu_torch.models.tracking import (
         StereoVisualOdometry,
     )
     from opendlv_perception_vision_orbslam2_tpu_torch.ops import (
-        cuda_build, fast_kernel, gather_kernel, image, stereo,
+        cuda_build, fast_kernel, gather_kernel, image,
     )
     from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic, trajectory
     from opendlv_perception_vision_orbslam2_tpu_torch.utils.config import (
@@ -249,8 +409,8 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    for name in ("fast_nms", "gather_patches"):
-        cuda_build.load(name)
+    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, both at once
+        list(pool.map(cuda_build.load, ("fast_nms", "gather_patches")))
     build_s = time.perf_counter() - t0
     ptxas = []
     for name in ("fast_nms", "gather_patches"):
@@ -266,46 +426,60 @@ def main() -> int:
         cfg, n_frames=24, n_points=900, seed=0, step=0.6
     )
     both = torch.from_numpy(np.stack([lefts[0], rights[0]])).to(dev)
-    levels = image.build_pyramid(both, orb.n_levels, orb.scale_factor)
     results = {}
 
-    # -- 3. fast_nms kernel vs plain -----------------------------------------
+    # -- 3. FAST+NMS kernel vs plain ----------------------------------------
+    levels, th, orb_job, sad_jobs = record_sites(cfg, both[0], both[1])
+    g = np.random.default_rng(0)
+    noise = g.uniform(0, 255, (2, cam.height, cam.width)).astype(np.float32)
+    pyramids = {"frame": levels}
+    for kind, pair in (("random", noise), ("integer", np.round(noise))):
+        pyramids[kind] = image.build_pyramid(torch.from_numpy(pair).to(dev), orb.n_levels,
+                                             orb.scale_factor)
     err = 0.0
-    th = float(orb.min_th_fast)
+    for kind, lvls in pyramids.items():
+        for t in FAST_THRESHOLDS:
+            maps = fast_kernel.fast_nms_pyramid(lvls, t)
+            for lvl, (m, lv) in enumerate(zip(maps, lvls)):
+                err = max(err, check_equal(f"fast_nms_pyramid {kind} level {lvl} th={t}", m,
+                                           fast_kernel.fast_nms_plain(lv, t)))
+    for t in (7.0, 20.0):   # the one-image entry point
+        err = max(err, check_equal(f"fast_nms random th={t}",
+                                   fast_kernel.fast_nms(pyramids["random"][0][0], t),
+                                   fast_kernel.fast_nms_plain(pyramids["random"][0][0], t)))
+    fast_sites = []
     for lvl, lv in enumerate(levels):
-        err = max(err, check_equal(f"fast_nms level {lvl}", fast_kernel.fast_nms(lv, th),
-                                   fast_kernel.fast_nms_plain(lv, th)))
-    rnd = torch.from_numpy(np.random.default_rng(0).uniform(0, 255, (cam.height, cam.width))
-                           .astype(np.float32)).to(dev)
-    for th in (7.0, 20.0):
-        err = max(err, check_equal(f"fast_nms random th={th}", fast_kernel.fast_nms(rnd, th),
-                                   fast_kernel.fast_nms_plain(rnd, th)))
-    th = float(orb.min_th_fast)
-    l0 = timed_pair(lambda: fast_kernel.fast_nms(levels[0], th),
-                    lambda: fast_kernel.fast_nms_plain(levels[0], th))
-    pyr = timed_pair(lambda: [fast_kernel.fast_nms(lv, th) for lv in levels],
+        n_bytes, n_ops, share = fast_work([lv], th)
+        fast_sites.append(site_row(   # alone: the path runs it inside the pyramid launch
+            f"level {lvl} {lv.shape[-1]}x{lv.shape[-2]} x2 alone", 0,
+            graph_ms(lambda lv=lv: fast_kernel.fast_nms(lv, th)),
+            graph_ms(lambda lv=lv: fast_kernel.fast_nms_plain(lv, th)),
+            n_bytes, n_ops, None, candidate_share=round(share[0], 4)))
+    n_bytes, n_ops, shares = fast_work(levels, th)
+    pyr = timed_pair(lambda: fast_kernel.fast_nms_pyramid(levels, th),
                      lambda: [fast_kernel.fast_nms_plain(lv, th) for lv in levels])
-    results["fast_nms"] = dict(max_abs_err=err, ms=pyr["kernel"]["device_ms"],
-                               plain_ms=pyr["plain"]["device_ms"])
-    print(f"fast_nms: bit-equal to plain on {len(levels)} levels x 2 eyes + random 376x1241 "
-          f"at th 7/20 | level 0 (2 eyes): {fmt_pair(l0)} | "
-          f"8-level pyramid (2 eyes): {fmt_pair(pyr)}", flush=True)
+    frame_row = site_row("pyramid (per frame)", 1, pyr["kernel"]["device_ms"],
+                         pyr["plain"]["device_ms"], n_bytes, n_ops, None,
+                         candidate_share=[round(x, 4) for x in shares])
+    results["fast_nms"] = dict(max_abs_err=err, **kernel_fields(frame_row),
+                               wall_ms=pyr["kernel"]["wall_ms"], sites=fast_sites + [frame_row])
+    print(f"fast_nms: bit-equal to plain, fast_nms_pyramid on the frame's and on random and "
+          f"integer-valued 376x1241 pyramids ({len(levels)} levels x 2 eyes) at th "
+          f"{'/'.join(f'{t:g}' for t in FAST_THRESHOLDS)}, fast_nms on a random image at th 7/20 "
+          f"| per frame at th {th:g}: {fmt_pair(pyr)}", flush=True)
+    for row in fast_sites + [frame_row]:
+        print(fmt_site("fast_nms", row), flush=True)
 
     # -- 4. gather_patches kernel vs plain -----------------------------------
-    _, _, _, _, y0, x0 = extractor._select_pyramid_keypoints(levels, orb)
-    atlas, ys, xs = extractor.patch_atlas_starts(levels, y0, x0, orb)
-    side = 45
-    err = check_equal("gather ORB atlas", gather_kernel.gather_patches(atlas, ys, xs, side, side),
-                      gather_kernel.gather_patches_plain(atlas, ys, xs, side, side))
-    g = np.random.default_rng(1)
-    sad_atlas, _ = stereo.build_atlas([lv[0] for lv in levels])
-    lp = image.edge_pad(sad_atlas, 5, 5, 5, 5)
-    rp = image.edge_pad(sad_atlas, 5, 5, 10, 10)
-    for name, img, ph, pw in (("SAD left 11x11", lp, 11, 11), ("SAD right 11x21", rp, 11, 21)):
-        sy = torch.from_numpy(g.integers(0, img.shape[0] - ph + 1, 2048).astype(np.int32)).to(dev)
-        sx = torch.from_numpy(g.integers(0, img.shape[1] - pw + 1, 2048).astype(np.int32)).to(dev)
-        err = max(err, check_equal(f"gather {name}", gather_kernel.gather_patches(img, sy, sx, ph, pw),
-                                   gather_kernel.gather_patches_plain(img, sy, sx, ph, pw)))
+    atlas, ys, xs, side, _ = orb_job
+    err = check_equal("gather ORB atlas", gather_kernel.gather_patches(*orb_job),
+                      gather_kernel.gather_patches_plain(*orb_job))
+    for name, job, out in zip(("SAD left", "SAD right"), sad_jobs,
+                              gather_kernel.gather_patches_multi(sad_jobs)):
+        err = max(err, check_equal(f"gather_patches_multi {name}", out,
+                                   gather_kernel.gather_patches_plain(*job)))
+        err = max(err, check_equal(f"gather {name}", gather_kernel.gather_patches(*job),
+                                   gather_kernel.gather_patches_plain(*job)))
     oy = torch.tensor([-7, 0, atlas.shape[0], 10**6, -(10**6)], dtype=torch.int32, device=dev)
     ox = torch.tensor([atlas.shape[1], -3, 5, -(10**6), 10**6], dtype=torch.int32, device=dev)
     clipped = gather_kernel.gather_patches(atlas, oy, ox, side, side)
@@ -316,19 +490,44 @@ def main() -> int:
                           atlas[H - side:, 5:5 + side], atlas[H - side:, 0:side],
                           atlas[0:side, W - side:]])
     err = max(err, check_equal("gather clipping vs slices", clipped, expect))
-    gat = timed_pair(lambda: gather_kernel.gather_patches(atlas, ys, xs, side, side),
-                     lambda: gather_kernel.gather_patches_plain(atlas, ys, xs, side, side))
-    results["gather_patches"] = dict(max_abs_err=err, ms=gat["kernel"]["device_ms"],
-                                     plain_ms=gat["plain"]["device_ms"])
-    print(f"gather_patches: bit-equal to plain on ORB atlas (N={ys.shape[0]}, 45x45), SAD "
-          f"11x11 / 11x21 (N=2048) and clipped starts | ORB gather: {fmt_pair(gat)}",
-          flush=True)
+    far = [(img, y0 + sign * 10**6, x0 - sign * 10**6, ph, pw)
+           for sign, (img, y0, x0, ph, pw) in zip((1, -1), sad_jobs)]
+    for name, job, out in zip(("SAD left", "SAD right"), far,
+                              gather_kernel.gather_patches_multi(far)):
+        err = max(err, check_equal(f"gather_patches_multi clipping {name}", out,
+                                   gather_kernel.gather_patches_plain(*job)))
+    gather_sites = []   # the SAD gathers alone, as a reference: the path launches the pair
+    for name, job, n in zip(("ORB atlas", "SAD left alone", "SAD right alone"),
+                            (orb_job, *sad_jobs), (1, 0, 0)):
+        gather_sites.append(site_row(
+            f"{name} {job[3]}x{job[4]} N={job[1].shape[0]}", n,
+            graph_ms(lambda job=job: gather_kernel.gather_patches(*job)),
+            graph_ms(lambda job=job: gather_kernel.gather_patches_plain(*job)),
+            gather_bytes([job]), 0, graph_ms(unfold_gather(*job))))
+    yardsticks = [unfold_gather(*job) for job in sad_jobs]
+    pair_row = site_row(
+        "SAD pair (gather_patches_multi)", 1,
+        graph_ms(lambda: gather_kernel.gather_patches_multi(sad_jobs)),
+        graph_ms(lambda: gather_kernel.gather_patches_multi_plain(sad_jobs)),
+        gather_bytes(sad_jobs), 0, graph_ms(lambda: [f() for f in yardsticks]))
+    orb_row = gather_sites[0]
+    frame_row = site_row("per frame (ORB + SAD pair)", 2, orb_row["ms"] + pair_row["ms"],
+                         orb_row["plain_ms"] + pair_row["plain_ms"],
+                         gather_bytes([orb_job, *sad_jobs]), 0,
+                         orb_row["library_ms"] + pair_row["library_ms"])
+    results["gather_patches"] = dict(max_abs_err=err, **kernel_fields(frame_row),
+                                     sites=gather_sites + [pair_row, frame_row])
+    print(f"gather_patches: bit-equal to plain on the frame's ORB atlas (N={ys.shape[0]}, "
+          f"{side}x{side}), its SAD windows 11x11 and strips 11x21 (gather_patches and one "
+          f"gather_patches_multi launch) and clipped starts", flush=True)
+    for row in gather_sites + [pair_row, frame_row]:
+        print(fmt_site("gather_patches", row), flush=True)
+    del pyramids, maps, clipped, expect, far   # out of phase 9's peak device memory
 
     # -- 5. the VO slice at KITTI size ----------------------------------------
     vo = StereoVisualOdometry(cfg, device=dev)
     n_frames, n_timed = lefts.shape[0], 16
-    fast_kernel.fast_nms.launches = 0
-    gather_kernel.gather_patches.launches = 0
+    reset_launches()
     lat, inliers = [], []
     t_timed = None
     for i in range(n_frames):
@@ -344,9 +543,9 @@ def main() -> int:
         if i > 0:
             inliers.append(int(vo.state.n_inliers))
     fps = n_timed / (time.perf_counter() - t_timed)
-    launches = {"fast_nms": fast_kernel.fast_nms.launches,
-                "gather_patches": gather_kernel.gather_patches.launches}
-    expected = {"fast_nms": orb.n_levels * n_frames, "gather_patches": 3 * n_frames}
+    launches = read_launches()
+    expected = {"fast_nms": 0, "fast_nms_pyramid": n_frames, "gather_patches": n_frames,
+                "gather_patches_multi": n_frames}
     if launches != expected:
         raise AssertionError(f"VO: kernel launches {launches}, expected {expected}")
     if min(inliers) < 10:
@@ -359,8 +558,7 @@ def main() -> int:
     print(f"vo_kitti: {n_frames} frames 1241x376, 2000 features, 8 levels | "
           f"{fps:.2f} frames/s over last {n_timed} | {ms_frame:.2f} ms/frame | "
           f"first frame {1e3 * lat[0]:.1f} ms | ATE {ate_kitti:.4f} m (align=False) | "
-          f"inliers min {min(inliers)} | launches/frame fast_nms "
-          f"{launches['fast_nms'] / n_frames:g}, gather {launches['gather_patches'] / n_frames:g}",
+          f"inliers min {min(inliers)} | launches/frame {per_frame(launches, n_frames)}",
           flush=True)
 
     # -- 6. where the time goes: front end vs tracking, device busy share ---
@@ -441,12 +639,10 @@ def main() -> int:
 
     # -- 9. stereo SLAM at KITTI size ---------------------------------------
     torch.cuda.reset_peak_memory_stats()
-    fast_kernel.fast_nms.launches = 0
-    gather_kernel.gather_patches.launches = 0
     slam = slam_mod.StereoSlam(cfg, device=dev, **SLAM_OFF)
+    reset_launches()
     lat = drive_slam(slam, lefts, rights, cam.fps)
-    slam_launches = {"fast_nms": fast_kernel.fast_nms.launches,
-                     "gather_patches": gather_kernel.gather_patches.launches}
+    slam_launches = read_launches()
     slam.finish()          # settles the last frame's deferred decision
     if slam.lost:
         raise AssertionError("SLAM: tracking lost at the last frame")
@@ -466,9 +662,8 @@ def main() -> int:
           f"frame {1e3 * lat[0]:.1f} ms | keyframes {slam.n_keyframes} (valid "
           f"{int(m.kf_valid.sum())}) | map points {int(m.pt_valid.sum())} | capacity "
           f"{m.kf_capacity} kf / {m.pt_capacity} pts | peak device memory {peak_gb:.3f} GB | "
-          f"ATE {ate_slam:.4f} m (align=False) | launches/frame fast_nms "
-          f"{slam_launches['fast_nms'] / n_frames:g}, gather "
-          f"{slam_launches['gather_patches'] / n_frames:g}", flush=True)
+          f"ATE {ate_slam:.4f} m (align=False) | launches/frame "
+          f"{per_frame(slam_launches, n_frames)}", flush=True)
 
     # -- 10. where the SLAM time goes ---------------------------------------
     # the layers are timed over frames 0-17; the profiler reads the last 6
@@ -533,8 +728,8 @@ def main() -> int:
     kernels = [
         dict(name=name, route="cuda",
              source=f"opendlv_perception_vision_orbslam2_tpu_torch/csrc/{name}.cu",
-             replaces=REPLACES[name], launches=slam_launches[name],
-             launches_vo=launches[name], **results[name])
+             replaces=REPLACES[name], launches=kernel_launches(slam_launches, name),
+             launches_vo=kernel_launches(launches, name), **results[name])
         for name in ("fast_nms", "gather_patches")
     ]
     print(json.dumps({"kernels": kernels}))

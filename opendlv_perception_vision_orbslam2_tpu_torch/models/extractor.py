@@ -3,8 +3,8 @@
 Counterpart of the reference package's ``models/extractor.py``
 (OrbExtractor::ExtractFeatures, reference: src/orbextractor.cpp:582-642):
 
-- each pyramid level of both eyes goes through one launch of the fused
-  FAST+NMS kernel (``ops/fast_kernel.py``);
+- every pyramid level of both eyes goes through ONE launch of the fused
+  FAST+NMS kernel (``ops/fast_kernel.py::fast_nms_pyramid``);
 - DistributeOctTree becomes a per-cell top-k + breadth-first global
   selection (every cell's best corner before any cell's second best);
 - the ini/min FAST threshold fallback is kept: strong corners outrank weak
@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from ..ops import fast as fast_ops
 from ..ops import orb as orb_ops
-from ..ops.fast_kernel import fast_nms
+from ..ops.fast_kernel import fast_nms_pyramid
 from ..ops.gather_kernel import gather_patches
 from ..utils.config import OrbConfig
 from .frame import Features
@@ -119,18 +119,19 @@ def _select_level_keypoints(scores, strong, budget: int, cell: int):
 
 
 def _select_pyramid_keypoints(levels: Sequence, config: OrbConfig):
-    """FAST + NMS + selection over all levels ``[B, H_l, W_l]``, one kernel
-    launch per level for all B images.  ``strong`` comes from the post-NMS
-    map: it is only read at NMS survivors, where the two maps agree.
+    """FAST + NMS + selection over all levels ``[B, H_l, W_l]``: one kernel
+    launch computes every level's map for all B images, then selection runs
+    level by level.  ``strong`` comes from the post-NMS map: it is only read
+    at NMS survivors, where the two maps agree.
 
     Returns per-level-concatenated ``(xy [B, N, 2], response, octave, valid,
     y0, x0)`` with ``(y0, x0)`` the border-clipped level-local patch centres.
     """
     budgets = per_level_budgets(config.n_features, config.scale_factor, config.n_levels)
+    maps = fast_nms_pyramid(levels, float(config.min_th_fast))
     xs, resps, octs, valids, y0s, x0s = [], [], [], [], [], []
-    for lvl, (level_img, budget) in enumerate(zip(levels, budgets)):
-        B, H, W = level_img.shape
-        nmsed = fast_nms(level_img, float(config.min_th_fast))
+    for lvl, (nmsed, budget) in enumerate(zip(maps, budgets)):
+        B, H, W = nmsed.shape
         strong = nmsed > float(config.ini_th_fast)
         scores = fast_ops.mask_border(nmsed, EDGE_BORDER)
         xy, response, valid = _select_level_keypoints(scores, strong, budget,

@@ -392,7 +392,7 @@ class StereoSlam:
 
     def __init__(self, config: SystemConfig, vocab=None, enable_loop_closing: bool = True,
                  enable_relocalization: bool = True, tracking_only: bool = False,
-                 device="cpu"):
+                 device="cuda"):
         if enable_loop_closing:
             raise NotImplementedError(
                 "loop closing is not ported yet (ROADMAP.md queue 1 item 6); "
@@ -407,7 +407,8 @@ class StereoSlam:
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("StereoSlam(device='cuda') needs a CUDA device")
+            raise RuntimeError("StereoSlam(device='cuda') needs a CUDA device; "
+                               "pass device='cpu' to run on the CPU")
         #: the constant the per-frame RANSAC generator is re-seeded with
         self.seed = 0
         self.generator = torch.Generator(device=self.device)

@@ -135,14 +135,18 @@ def init_state(first_frame: FrameState) -> TrackState:
 
 class StereoVisualOdometry:
     """Host-side loop around :func:`vo_step`: stereo initialization and
-    lost bookkeeping, on an explicit ``device``.  Each frame's EPnP-RANSAC
+    lost bookkeeping, on ``device`` (the card unless the caller asks for
+    the CPU; without a card the default raises).  Each frame's EPnP-RANSAC
     sets are drawn from a generator re-seeded with the constant ``seed``
     just before the draw, as the reference draws each frame with a fresh
     ``PRNGKey(0)``: a frame's draw depends on that frame alone."""
 
-    def __init__(self, config: SystemConfig, device="cpu"):
+    def __init__(self, config: SystemConfig, device="cuda"):
         self.config = config
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("StereoVisualOdometry(device='cuda') needs a CUDA device; "
+                               "pass device='cpu' to run on the CPU")
         #: the constant the per-frame RANSAC generator is re-seeded with
         self.seed = 0
         self.generator = torch.Generator(device=self.device)

@@ -62,6 +62,27 @@ def fast_score_map(img, threshold: float):
     return torch.where(v > threshold, v, torch.zeros_like(v))
 
 
+COMPASS = (0, 4, 8, 12)  # indices into CIRCLE16: (-3, 0), (0, 3), (3, 0), (0, -3)
+
+
+def compass_test(img, threshold: float):
+    """FAST's classic early-out, as the CUDA kernel applies it: ``(bright,
+    dark)`` masks of the pixels where at least 2 of the 4 compass points
+    have ``d_i > threshold`` (bright) or ``-d_i > threshold`` (dark).
+
+    Exact for any threshold: a polarity's 9-arc minimum exceeds the
+    threshold only if all 9 ``d_i`` of some arc do, and any 9 consecutive
+    circle points hold at least 2 compass points.  So where a mask is False
+    that polarity's arc response is <= threshold, and where both are False
+    ``fast_score_map`` is 0."""
+    img = img.to(torch.float32)
+    views = _neighbor_views(img)
+    diff = [views[k] - img for k in COMPASS]
+    bright = sum((d > threshold).to(torch.int32) for d in diff) >= 2
+    dark = sum((-d > threshold).to(torch.int32) for d in diff) >= 2
+    return bright, dark
+
+
 def nms_scores(scores):
     """3x3 non-max suppression: keep only values >= all 8 neighbours."""
     local_max = max_pool_3x3_same(scores)

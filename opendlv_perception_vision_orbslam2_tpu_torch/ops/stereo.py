@@ -4,7 +4,7 @@ Counterpart of the reference package's ``ops/stereo.py`` (batched
 OrbFrame::ComputeStereoMatches, reference: src/orbframe.cpp:511-705):
 candidate gating is a boolean [KL, KR] mask, the best match per row comes
 from the Hamming matrix, the 11x11 SAD slide reads all left windows and all
-right strips from edge-padded pyramid atlases with two launches of the
+right strips from edge-padded pyramid atlases in one launch of the
 window-gather kernel, and the outlier cut is a masked median.
 
 Depth convention matches the reference: ``depth = bf / disparity``; invalid
@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .gather_kernel import gather_patches
+from .gather_kernel import gather_patches_multi
 from .hamming import MAX_DIST, TH_HIGH, TH_LOW, hamming_matrix
 from .image import edge_pad
 
@@ -81,13 +81,14 @@ def stereo_match(feat_left, feat_right, atlas_left, atlas_right, row_offsets,
     # interior/disparity/median gates already reject.
     yl = sv + row_base
     lp = edge_pad(atlas_left, SAD_HALF, SAD_HALF, SAD_HALF, SAD_HALF)
-    patch_l = gather_patches(lp, yl, su, win, win).reshape(KL, win * win)
+    strip_w = win + 2 * SLIDE
+    rp = edge_pad(atlas_right, SAD_HALF, SAD_HALF, SAD_HALF + SLIDE, SAD_HALF + SLIDE)
+    patch_l, strip_r = gather_patches_multi(              # [KL, 11, 11], [KL, 11, 21]
+        [(lp, yl, su, win, win), (rp, yl, sur0, win, strip_w)])
+    patch_l = patch_l.reshape(KL, win * win)
     center_l = patch_l[:, (win * win) // 2]
     patch_l = patch_l - center_l[:, None]
 
-    strip_w = win + 2 * SLIDE
-    rp = edge_pad(atlas_right, SAD_HALF, SAD_HALF, SAD_HALF + SLIDE, SAD_HALF + SLIDE)
-    strip_r = gather_patches(rp, yl, sur0, win, strip_w)      # [KL, 11, 21]
     patches_r = torch.stack(
         [strip_r[:, :, i : i + win] for i in range(2 * SLIDE + 1)], dim=1
     ).reshape(KL, 2 * SLIDE + 1, win * win)

@@ -34,11 +34,52 @@ def test_fast_nms_kernel_equals_plain_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("integer", [False, True], ids=["random", "integer"])
+def test_fast_nms_pyramid_kernel_equals_plain_on_card(integer):
+    """One launch over all 8 levels x 2 eyes of a KITTI-size pyramid, bit
+    for bit against the plain version at thresholds 0, 7 and 20."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops import image
+
+    imgs = np.stack([_rand_img(376, 1241, seed=s) for s in (2, 3)])
+    if integer:
+        imgs = np.round(imgs)
+    levels = image.build_pyramid(torch.from_numpy(imgs).cuda(), 8, 1.2)
+    for th in (0.0, 7.0, 20.0):
+        before = fast_kernel.fast_nms_pyramid.launches
+        maps = fast_kernel.fast_nms_pyramid(levels, th)
+        assert fast_kernel.fast_nms_pyramid.launches == before + 1
+        torch.cuda.synchronize()
+        for lvl, (m, lv) in enumerate(zip(maps, levels)):
+            assert torch.equal(m, fast_kernel.fast_nms_plain(lv, th)), f"level {lvl} th {th}"
+
+
+@pytest.mark.cuda
+def test_gather_multi_kernel_equals_plain_on_card():
+    """The two SAD gathers in one launch, plus a runtime-shape job; starts
+    out of range included."""
+    _require_cuda()
+    rng = np.random.default_rng(1)
+    jobs = []
+    for H, W, ph, pw in ((900, 1262, 11, 11), (900, 1272, 11, 21), (300, 400, 7, 13)):
+        img = torch.from_numpy(rng.uniform(0, 255, (H, W)).astype(np.float32)).cuda()
+        y0 = torch.from_numpy(rng.integers(-50, H + 50, 2048).astype(np.int32)).cuda()
+        x0 = torch.from_numpy(rng.integers(-50, W + 50, 2048).astype(np.int32)).cuda()
+        jobs.append((img, y0, x0, ph, pw))
+    before = gather_kernel.gather_patches_multi.launches
+    outs = gather_kernel.gather_patches_multi(jobs)
+    assert gather_kernel.gather_patches_multi.launches == before + 1
+    torch.cuda.synchronize()
+    for out, job in zip(outs, jobs):
+        assert torch.equal(out, gather_kernel.gather_patches_plain(*job))
+
+
+@pytest.mark.cuda
 def test_gather_kernel_equals_plain_on_card():
     _require_cuda()
     rng = np.random.default_rng(0)
     img = torch.from_numpy(rng.uniform(0, 255, (900, 1300)).astype(np.float32)).cuda()
-    for ph, pw in ((45, 45), (11, 11), (11, 21)):
+    for ph, pw in ((45, 45), (11, 11), (11, 21), (8, 16), (1, 1)):
         y0 = torch.from_numpy(rng.integers(-50, 950, 2048).astype(np.int32)).cuda()
         x0 = torch.from_numpy(rng.integers(-50, 1350, 2048).astype(np.int32)).cuda()
         out = gather_kernel.gather_patches(img, y0, x0, ph, pw)
@@ -87,7 +128,8 @@ def test_slam_stages_on_card_equal_cpu(monkeypatch):
     cfg = _slam_cfg()
     lefts, rights, _, _ = synthetic.render_stereo_sequence(cfg, n_frames=16, n_points=500,
                                                            seed=5, step=0.25)
-    slam = slam_mod.StereoSlam(cfg, enable_loop_closing=False, enable_relocalization=False)
+    slam = slam_mod.StereoSlam(cfg, enable_loop_closing=False, enable_relocalization=False,
+                               device="cpu")
     slam.force_sync_decisions = True
     i = 0
     while slam.n_keyframes < 3 and i < 15:      # a map with local BA behind it

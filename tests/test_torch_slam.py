@@ -33,6 +33,7 @@ from opendlv_perception_vision_orbslam2_tpu.utils import config as jconfig
 from opendlv_perception_vision_orbslam2_tpu.utils import synthetic as jsyn
 from opendlv_perception_vision_orbslam2_tpu.utils import trajectory as jtraj
 from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as tslam
+from opendlv_perception_vision_orbslam2_tpu_torch.models import tracking as ttrack
 from opendlv_perception_vision_orbslam2_tpu_torch.optim import pnp as tpnp
 from opendlv_perception_vision_orbslam2_tpu_torch.utils import config as tconfig
 from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic as tsyn
@@ -174,7 +175,7 @@ def test_slam_slice_matches_reference_per_frame(frames, reference_run, monkeypat
     cur_frames, _ = frames
     poses, n_kf, n_pt, _, corrected = reference_run
     monkeypatch.setattr(tpnp, "sample_sets", _reference_sets)
-    slam = tslam.StereoSlam(TCFG, **OFF)
+    slam = tslam.StereoSlam(TCFG, device="cpu", **OFF)
     slam.force_sync_decisions = True
     for i, cur in enumerate(cur_frames):
         T = slam._step(from_jax_numpy(_np_tree(cur))).numpy()
@@ -204,13 +205,25 @@ def test_disabled_features_raise(kwargs):
 
 
 def test_rgbd_raises_and_cuda_needs_a_card():
-    slam = tslam.StereoSlam(TCFG, **OFF)
+    slam = tslam.StereoSlam(TCFG, device="cpu", **OFF)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         slam.process_rgbd(np.zeros((256, 512), np.float32), np.ones((256, 512), np.float32))
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
         tslam.StereoSlam(TCFG, device="cuda", **OFF)
+
+
+@pytest.mark.parametrize("entry", ["StereoVisualOdometry", "StereoSlam"])
+def test_entry_points_default_to_the_card(entry):
+    """With no device given, both entry points run on the card, so without
+    one they raise instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    make = {"StereoVisualOdometry": lambda: ttrack.StereoVisualOdometry(TCFG),
+            "StereoSlam": lambda: tslam.StereoSlam(TCFG, **OFF)}[entry]
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        make()
 
 
 @pytest.mark.slow
@@ -221,7 +234,7 @@ def test_port_slam_accuracy_bounds():
     th_far = tcfg.tracking.th_depth * tcfg.camera.baseline_m
     lefts, rights, gt, world = tsyn.render_stereo_sequence(tcfg, n_frames=14, n_points=500,
                                                            seed=5, step=0.25)
-    slam = tslam.StereoSlam(tcfg, **OFF)
+    slam = tslam.StereoSlam(tcfg, device="cpu", **OFF)
     for i in range(14):
         assert slam.process(lefts[i], rights[i], timestamp=i * 0.1) is not None
         assert not slam.lost, f"lost tracking at frame {i}"
