@@ -119,7 +119,7 @@ def empty_map(kf_capacity: int, pt_capacity: int, feat_capacity: int,
     )
 
 
-def _pad(x, n: int, fill=0):
+def pad_rows(x, n: int, fill=0):
     extra = torch.full((n - x.shape[0],) + tuple(x.shape[1:]), fill, dtype=x.dtype,
                        device=x.device)
     return torch.cat([x, extra])
@@ -136,27 +136,27 @@ def grow_map(m: MapState, new_kf_capacity: int, new_pt_capacity: int) -> MapStat
     covis = torch.zeros((K, K), dtype=m.covis.dtype, device=m.covis.device)
     covis[: m.kf_capacity, : m.kf_capacity] = m.covis
     return m._replace(
-        kf_valid=_pad(m.kf_valid, K, False),
-        kf_id=_pad(m.kf_id, K, -1),
+        kf_valid=pad_rows(m.kf_valid, K, False),
+        kf_id=pad_rows(m.kf_id, K, -1),
         kf_T_cw=torch.cat([m.kf_T_cw, eye_k]),
-        kf_xy=_pad(m.kf_xy, K),
-        kf_octave=_pad(m.kf_octave, K),
-        kf_angle=_pad(m.kf_angle, K),
-        kf_desc=_pad(m.kf_desc, K),
-        kf_uright=_pad(m.kf_uright, K, -1),
-        kf_depth=_pad(m.kf_depth, K, -1),
-        kf_feat_valid=_pad(m.kf_feat_valid, K, False),
-        kf_obs_point=_pad(m.kf_obs_point, K, -1),
-        pt_valid=_pad(m.pt_valid, P, False),
-        pt_pos=_pad(m.pt_pos, P),
-        pt_desc=_pad(m.pt_desc, P),
-        pt_normal=_pad(m.pt_normal, P),
-        pt_min_dist=_pad(m.pt_min_dist, P),
-        pt_max_dist=_pad(m.pt_max_dist, P, 1e9),
-        pt_ref_kf=_pad(m.pt_ref_kf, P, -1),
-        pt_first_kf_id=_pad(m.pt_first_kf_id, P, -1),
-        pt_visible=_pad(m.pt_visible, P, 1),
-        pt_found=_pad(m.pt_found, P, 1),
+        kf_xy=pad_rows(m.kf_xy, K),
+        kf_octave=pad_rows(m.kf_octave, K),
+        kf_angle=pad_rows(m.kf_angle, K),
+        kf_desc=pad_rows(m.kf_desc, K),
+        kf_uright=pad_rows(m.kf_uright, K, -1),
+        kf_depth=pad_rows(m.kf_depth, K, -1),
+        kf_feat_valid=pad_rows(m.kf_feat_valid, K, False),
+        kf_obs_point=pad_rows(m.kf_obs_point, K, -1),
+        pt_valid=pad_rows(m.pt_valid, P, False),
+        pt_pos=pad_rows(m.pt_pos, P),
+        pt_desc=pad_rows(m.pt_desc, P),
+        pt_normal=pad_rows(m.pt_normal, P),
+        pt_min_dist=pad_rows(m.pt_min_dist, P),
+        pt_max_dist=pad_rows(m.pt_max_dist, P, 1e9),
+        pt_ref_kf=pad_rows(m.pt_ref_kf, P, -1),
+        pt_first_kf_id=pad_rows(m.pt_first_kf_id, P, -1),
+        pt_visible=pad_rows(m.pt_visible, P, 1),
+        pt_found=pad_rows(m.pt_found, P, 1),
         covis=covis,
     )
 

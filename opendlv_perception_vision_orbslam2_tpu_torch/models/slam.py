@@ -3,7 +3,9 @@
 Counterpart of the reference package's ``models/slam.py`` (Tracking::Track
 -> TrackLocalMap -> NeedNewKeyFrame -> CreateNewKeyFrame, and the Mapping
 thread's loop body, reference: src/tracking.cpp:262-339, 696-976,
-src/mapping.cpp:48-116), without loop closing and relocalization.
+src/mapping.cpp:48-116), with place recognition (the online vocabulary, the
+keyframe database), the lost-frame recovery ladder and localization-only
+mode; without loop closing.
 
 Device programs are plain functions on tensors: ``track_frame_with_map``
 per frame, ``insert_stage`` + ``mapping_stage`` per keyframe.  The host
@@ -20,6 +22,8 @@ map point slots (-1 = none), the analogue of ``OrbFrame::m_mapPoints``.
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -27,17 +31,22 @@ import torch
 
 from ..ops import lie, matching
 from ..ops.hamming import MAX_DIST, TH_HIGH, hamming_matrix
-from ..ops.indexing import row, scatter_add, scatter_max, scatter_set, topk_stable
+from ..ops.indexing import (
+    row, scatter_add, scatter_max, scatter_set, set_row, topk_stable,
+)
 from ..optim.pose_opt import PoseObs, pose_optimize, robust_pose_estimate
 from ..utils.config import SystemConfig
 from .frame import FrameState, features_scale_sigma2
 from .frontend import process_stereo
+from . import vocabulary as voc
 from .fusion import run_fusion
+from .kfdb import add_keyframe, empty_kfdb
 from .local_mapping import local_mapping_step
 from .map_state import (
     MapState, cull_keyframes, cull_points, empty_map, evict_oldest_if_full, grow_map,
-    insert_keyframe, point_observation_counts, recompute_covisibility,
+    insert_keyframe, pad_rows, point_observation_counts, recompute_covisibility,
 )
+from .relocalization import relocalize, relocalize_brute
 from .tracking import MIN_MATCHES_MOTION
 from .triangulation import create_new_map_points
 
@@ -334,6 +343,51 @@ def _wide_recovery_program(m: MapState, cur: FrameState, T_guess, generator,
     return T, torch.where(obs.valid & inliers, bindings, -1), n_inl
 
 
+def _track_ref_kf_program(m: MapState, kf_nodes, last_bindings, cur: FrameState, cur_nodes,
+                          T_cw, config: SystemConfig):
+    """TrackReferenceKeyFrame as one program (reference:
+    src/tracking.cpp:587-629): pick the keyframe sharing most points with
+    the last frame (the lowest slot among ties), BoW-match the current frame
+    against it, pose-optimize from the last pose.  Returns ``(T_est,
+    bindings, n_pair, n_inl)``."""
+    cam = config.camera
+    P = m.pt_capacity
+    cur_bound = _mark(P, last_bindings.long(), last_bindings >= 0)
+    sees = (m.kf_feat_valid & (m.kf_obs_point >= 0)
+            & cur_bound[m.kf_obs_point.clamp(0, P - 1).long()] & m.kf_valid[:, None])
+    ref_slot = topk_stable(sees.sum(dim=1), 1)[1][0]
+
+    feats = cur.features
+    idx_kf, ok = matching.search_by_bow(
+        feats.desc, cur_nodes, feats.valid, feats.angle,
+        row(m.kf_desc, ref_slot), row(kf_nodes, ref_slot),
+        row(m.kf_feat_valid, ref_slot), row(m.kf_angle, ref_slot),
+        max_dist=50, nn_ratio=0.7)
+    bind = row(m.kf_obs_point, ref_slot)[idx_kf]
+    safe = bind.clamp(0, P - 1).long()
+    pair_ok = ok & (bind >= 0) & m.pt_valid[safe]
+    obs = PoseObs(p_w=m.pt_pos[safe], uv=feats.xy, u_right=feats.u_right,
+                  sigma2=features_scale_sigma2(feats, config.orb.scale_factor), valid=pair_ok)
+    T_est, inliers, n_inl = pose_optimize(T_cw, obs, fx=cam.fx, fy=cam.fy, cx=cam.cx,
+                                          cy=cam.cy, bf=cam.bf)
+    return T_est, torch.where(pair_ok & inliers, bind, -1), pair_ok.sum(), n_inl
+
+
+def train_vocab_from_pool(descs: np.ndarray, feat_ok: np.ndarray, rng, seed: int):
+    """The vocabulary retrain's host work, numpy in and out: the valid
+    descriptors of the pooled keyframes (``descs [n, F, 8]``, ``feat_ok [n,
+    F]``), capped at 24,000 drawn by ``rng`` (past that extra samples barely
+    move the centroids while the Hamming assignment is linear in the pool),
+    through ``train_vocabulary_np``.  Returns its tuple of arrays, or None
+    below 1,000 descriptors."""
+    pool = descs[feat_ok]
+    if len(pool) < 1000:
+        return None
+    if len(pool) > 24000:
+        pool = pool[rng.choice(len(pool), 24000, replace=False)]
+    return voc.train_vocabulary_np(pool, branching=10, levels=4, seed=seed)
+
+
 def rebase_pose(T_cur, T_kf_pre, T_kf_post):
     """Keep the tracked relative pose cur<-KF across a keyframe the mapping
     stage moved (reference: src/tracking.cpp:546-585); degenerate results
@@ -372,23 +426,45 @@ class _HostFetch:
 
 
 class StereoSlam:
-    """Host scheduler for stereo SLAM without loop closing or
-    relocalization: the per-frame tracking program, the keyframe insert and
-    the asynchronous mapping stage (reference: src/selflocalization.cpp:330-377
-    wiring, here without the loop-closing thread).
+    """Host scheduler for stereo SLAM without loop closing: the per-frame
+    tracking program, the keyframe insert, the asynchronous mapping stage,
+    place recognition and the lost-frame recovery ladder (reference:
+    src/selflocalization.cpp:330-377 wiring, here without the loop-closing
+    thread).
 
-    ``enable_loop_closing``, ``enable_relocalization``, ``vocab`` and
-    ``tracking_only`` keep the reference's signature; the features they turn
-    on raise ``NotImplementedError`` until their slice of the port lands
-    (ROADMAP.md queue 1).  Per-frame RANSAC draws come from a generator
-    re-seeded with the constant ``seed`` before each frame, as the reference
-    draws with a fresh ``PRNGKey(0)``; the wide-recovery rung draws from a
-    generator seeded once with 11 that advances, as the reference splits
-    ``PRNGKey(11)``."""
+    With ``enable_relocalization`` every adopted keyframe gets a BoW row in
+    the keyframe database and a node table; the vocabulary is ``vocab`` or is
+    trained from the first frame's descriptors and retrained as the map
+    grows.  A lost frame climbs four rungs: reference-keyframe BoW tracking,
+    BoW relocalization, wide projection recovery, vocabulary-free global
+    relocalization.  ``tracking_only`` (a plain attribute, it may be switched
+    on once a map is built) is localization-only mode, the reference's
+    mbOnlyTracking (src/tracking.cpp:1538-1640): the map is frozen, no
+    keyframes and no mapping stages, and with fewer than 10 map inliers the
+    motion-model estimate carries the pose (``_vo_mode``) while
+    relocalization is tried every frame; a success snaps back onto the map.
+    ``enable_loop_closing=True`` raises ``NotImplementedError`` until its
+    slice of the port lands (ROADMAP.md queue 1 item 6).
+
+    Per-frame RANSAC draws come from a generator re-seeded with the constant
+    ``seed`` before each frame, as the reference package draws with a fresh
+    ``PRNGKey(0)``; the recovery rungs share a generator seeded once with 11
+    that advances, as the reference package splits ``PRNGKey(11)``."""
 
     # max keyframes inserted-but-not-yet-mapped while a stage is in flight
     # (reference: insert while fewer than 3 wait, src/tracking.cpp:884-893)
     KF_QUEUE_CAP = 2
+    # The online vocabulary retrains as the map grows: first at 8 keyframes
+    # (the bootstrap vocabulary from one frame barely discriminates), then at
+    # every 4x keyframe count (32, 128, ...).  The reference loads an offline
+    # ORBvoc (src/orbvocabulary.cpp:39-118); none ships.
+    VOCAB_REFRESH_AT = 8
+    # keyframes sampled for the retrain pool (bounds the copy and the k-means)
+    VOCAB_POOL_KFS = 32
+    # keyframes between starting a retrain and swapping it in: the swap comes
+    # at a fixed keyframe count, not whenever the thread happens to finish,
+    # so the BoW rows do not depend on the host's load
+    VOCAB_SWAP_DELAY = 4
 
     def __init__(self, config: SystemConfig, vocab=None, enable_loop_closing: bool = True,
                  enable_relocalization: bool = True, tracking_only: bool = False,
@@ -397,13 +473,8 @@ class StereoSlam:
             raise NotImplementedError(
                 "loop closing is not ported yet (ROADMAP.md queue 1 item 6); "
                 "pass enable_loop_closing=False")
-        if enable_relocalization or vocab is not None:
-            raise NotImplementedError(
-                "relocalization and the vocabulary are not ported yet (ROADMAP.md "
-                "queue 1 item 5); pass enable_relocalization=False and no vocab")
-        if tracking_only:
-            raise NotImplementedError(
-                "tracking-only mode is not ported yet (ROADMAP.md queue 1 item 7)")
+        self.tracking_only = tracking_only
+        self._vo_mode = False
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -413,6 +484,18 @@ class StereoSlam:
         self.seed = 0
         self.generator = torch.Generator(device=self.device)
         self._reloc_gen = torch.Generator(device=self.device).manual_seed(11)
+        self.enable_loop_closing = enable_loop_closing
+        self.enable_relocalization = enable_relocalization
+        # place recognition state; the vocabulary and its retrain schedule
+        # survive a reset, the database and the node tables do not
+        self.vocab = None if vocab is None else voc.vocabulary_to(vocab, self.device)
+        self._next_vocab_refresh = self.VOCAB_REFRESH_AT
+        self._vocab_swap_at = 0
+        self._vocab_thread = None
+        self._vocab_result = None
+        #: observability: the last retrain's host seconds, the swaps so far
+        self.vocab_train_seconds = None
+        self.vocab_swaps = 0
         #: True: every decision and mapping stage synchronous (tests)
         self.force_sync_decisions = False
         self.trajectory: list = []
@@ -458,6 +541,9 @@ class StereoSlam:
         self._kf_queue: list = []
         self._decision_pending = None
         self._pending_vis = self._pending_found = None
+        self.db = None
+        self.kf_nodes = None
+        self._kf_valid_host = None
 
     @property
     def mapping_busy(self) -> bool:
@@ -500,11 +586,107 @@ class StereoSlam:
                 out.append(raws[i])
         return out
 
-    # ---- features of later slices: the reference's early returns ----------
+    # ---- the vocabulary and the keyframe database ---------------------------
+
+    def _ensure_vocab(self, frame: FrameState):
+        """Without a given vocabulary, train one from the first frame's
+        descriptors (at least 64)."""
+        if self.vocab is not None or not (self.enable_loop_closing
+                                          or self.enable_relocalization):
+            return
+        feats = frame.features
+        descs = feats.desc.cpu().numpy()[feats.valid.cpu().numpy()]
+        if len(descs) < 64:
+            return
+        self.vocab = voc.train_vocabulary(descs, branching=10, levels=4, seed=0,
+                                          device=self.device)
+
+    def _maybe_refresh_vocab(self):
+        """Periodic vocabulary retrain, off the tracking path.
+
+        At the trigger this thread draws the keyframe pool, enqueues its
+        gather and the copy into pinned host memory, and starts a worker
+        thread that waits for that copy and runs the numpy k-means
+        (``train_vocab_from_pool``): the worker launches nothing and
+        allocates nothing on the device.  The finished vocabulary is swapped
+        in at exactly ``trigger + VOCAB_SWAP_DELAY`` keyframes, joining the
+        thread if it still runs: determinism is worth a rare bounded wait."""
+        if self.db is None:
+            return
+        if self._vocab_thread is not None:
+            if self.n_keyframes < self._vocab_swap_at:
+                return
+            self._vocab_thread.join()
+            self._vocab_thread = None
+            arrays, self._vocab_result = self._vocab_result, None
+            if arrays is not None:
+                self._adopt_vocab(voc.vocabulary_from_numpy(arrays, self.device))
+            return
+        due = self._next_vocab_refresh
+        if self.n_keyframes < due:
+            return
+        self._next_vocab_refresh = max(due * 4, self.n_keyframes + 1)
+        self._vocab_swap_at = self.n_keyframes + self.VOCAB_SWAP_DELAY
+        # the live slots came with the adopted stage's fetch; only after an
+        # eviction is the mask read from the device
+        kf_valid = self._kf_valid_host
+        if kf_valid is None:
+            kf_valid = self.map.kf_valid.cpu().numpy()
+        live = np.nonzero(kf_valid)[0]
+        if live.size == 0:
+            return
+        rng = np.random.default_rng(due)
+        sel = (live if live.size <= self.VOCAB_POOL_KFS
+               else rng.choice(live, self.VOCAB_POOL_KFS, replace=False))
+        sel = torch.from_numpy(np.sort(sel).astype(np.int64))
+        if self.device.type == "cuda":
+            sel = sel.pin_memory().to(self.device, non_blocking=True)
+        fetch = _HostFetch(self.map.kf_desc.index_select(0, sel),
+                           self.map.kf_feat_valid.index_select(0, sel))
+
+        def work():
+            descs, feat_ok = fetch.result()     # host arrays, once the copy landed
+            t = time.perf_counter()
+            self._vocab_result = train_vocab_from_pool(descs, feat_ok, rng, int(due))
+            self.vocab_train_seconds = time.perf_counter() - t
+
+        self._vocab_result = None
+        self._vocab_thread = threading.Thread(target=work, daemon=True)
+        self._vocab_thread.start()
+
+    def _adopt_vocab(self, vocab):
+        """Swap in a freshly trained vocabulary: rebuild the database rows
+        and node tables of every live keyframe in one batched descent."""
+        m = self.map
+        self.vocab = vocab
+        words, nodes = voc.transform_all(vocab, m.kf_desc, m.kf_feat_valid)
+        live = m.kf_valid
+        self.db = empty_kfdb(m.kf_capacity, vocab.n_words, self.device)._replace(
+            bow=torch.where(live[:, None], voc.bow_vectors(vocab, words), 0.0),
+            has_row=live)
+        self.kf_nodes = torch.where(live[:, None], nodes, -1)
+        self.vocab_swaps += 1
 
     def _register_keyframe(self, slot: int, kf_id: int):
-        """BoW row + loop detection: returns at once without a vocabulary."""
-        return
+        """BoW row + node table for a new keyframe, at adoption time, after
+        the mapping stage landed: the reference's LoopClosing thread adds a
+        keyframe to the database only after Mapping processed it (reference:
+        src/mapping.cpp:90, src/loopclosing.cpp:216)."""
+        if self.vocab is None:
+            return
+        if self.db is None:
+            self.db = empty_kfdb(self.map.kf_capacity, self.vocab.n_words, self.device)
+            self.kf_nodes = torch.full((self.map.kf_capacity, self.config.orb.max_keypoints),
+                                       -1, dtype=torch.int32, device=self.device)
+        self._maybe_refresh_vocab()
+        words, nodes = voc.transform(self.vocab, self.map.kf_desc[slot],
+                                     self.map.kf_feat_valid[slot])
+        self.db = add_keyframe(self.db, slot, voc.bow_vector(self.vocab, words))
+        self.kf_nodes = set_row(self.kf_nodes, slot, nodes)
+        # drop rows of culled keyframes
+        self.db = self.db._replace(has_row=self.db.has_row & self.map.kf_valid)
+
+    # ---- features of a later slice: the reference's early returns ----------
 
     def _try_harvest_loop(self, force: bool = False):
         """The staged loop-closing pipeline: returns at once without a loop
@@ -516,15 +698,49 @@ class StereoSlam:
         flight."""
         return
 
+    # ---- the recovery rungs ----------------------------------------------------
+
     def _track_reference_keyframe(self, cur: FrameState):
-        """BoW tracking rung: needs the vocabulary, so it declines."""
-        return False
+        """BoW-match the frame against its reference keyframe and
+        pose-optimize from the last pose (TrackReferenceKeyFrame, reference:
+        src/tracking.cpp:587-629), the rung between motion-model tracking and
+        relocalization: one program, one fetch."""
+        if self.vocab is None or self.kf_nodes is None:
+            return False
+        feats = cur.features
+        _, nodes = voc.transform(self.vocab, feats.desc, feats.valid)
+        T_est, bindings, n_pair, n_inl = _track_ref_kf_program(
+            self.map, self.kf_nodes, self.last_bindings, cur, nodes, self.T_cw, self.config)
+        n_pair, n_inl = torch.stack([n_pair, n_inl]).tolist()
+        # reference gates: >= 15 BoW matches (:607), >= 10 map inliers (:625)
+        if n_pair < 15 or n_inl < 10:
+            return False
+        self.T_cw = T_est
+        self.last_bindings = bindings
+        self.lost = False
+        return True
+
+    def _adopt_reloc(self, res) -> bool:
+        if not res.success:
+            return False
+        self.T_cw = res.T_cw
+        self.velocity = self._eye()
+        self.last_bindings = res.bindings
+        self.lost = False
+        return True
 
     def _try_relocalize(self, cur: FrameState):
-        return False
+        if not self.enable_relocalization or self.db is None:
+            return False
+        return self._adopt_reloc(relocalize(self.map, self.db, self.kf_nodes, self.vocab, cur,
+                                            self.config, self._reloc_gen))
 
     def _try_global_reloc(self, cur: FrameState):
-        return False
+        """Vocabulary-free exact-NN relocalization over the whole map, the
+        rung for when the online-trained BoW is too weak to rank candidates."""
+        if not self.enable_relocalization:
+            return False
+        return self._adopt_reloc(relocalize_brute(self.map, cur, self.config, self._reloc_gen))
 
     def _try_wide_recovery(self, cur: FrameState):
         """Wide projection recovery from the last good pose; accepts at the
@@ -562,7 +778,7 @@ class StereoSlam:
             "T_kf_pre": row(self.map.kf_T_cw, slot),
             # interim point identities for adoption_fixup
             "pt_id_pre": self.map.pt_first_kf_id,
-            "fetch": _HostFetch(aux, slot.reshape(())),
+            "fetch": _HostFetch(aux, slot.reshape(()), m_new.kf_valid),
         }
         P = self.map.pt_capacity
         self._pending_vis = torch.zeros((P,), dtype=torch.int32, device=self.device)
@@ -603,7 +819,7 @@ class StereoSlam:
         if self.last_frame is not None:
             self.last_frame = self.last_frame._replace(T_cw=self.T_cw)
         self.map = m
-        stats, slot_np = pend["fetch"].result()
+        stats, slot_np, self._kf_valid_host = pend["fetch"].result()
         self.ref_kf_tracked = max(int(stats[0]), 1)
         self._occ = (int(stats[1]), int(stats[2]))
         self._inserts_since_occ = len(self._kf_queue)
@@ -611,6 +827,7 @@ class StereoSlam:
         self.last_kf_id = pend["kf_id"]
         self._maybe_resize(extra_kf=len(self._kf_queue))
         self._register_keyframe(self.last_kf_slot, pend["kf_id"])
+        self._kf_valid_host = None
         # replay queued keyframes onto the settled map, then start the next
         # stage; local BA only when the backlog is clear
         if self._kf_queue:
@@ -635,9 +852,14 @@ class StereoSlam:
                   else min(P * 4, cfg.max_map_points))
         if (grow_k, grow_p) != (K, P):
             self.map = grow_map(self.map, grow_k, grow_p)
+            if self.db is not None:
+                self.db = self.db._replace(bow=pad_rows(self.db.bow, grow_k),
+                                           has_row=pad_rows(self.db.has_row, grow_k))
+                self.kf_nodes = pad_rows(self.kf_nodes, grow_k, -1)
         elif n_kf >= K - 5 and K >= cfg.max_keyframes:
             for _ in range(3):
                 self.map = evict_oldest_if_full(self.map, min_free=5)
+            self._kf_valid_host = None      # the fetched mask predates the eviction
 
     def _insert_keyframe(self, frame: FrameState, bindings):
         """Synchronous insert + mapping (the bootstrap path)."""
@@ -710,9 +932,19 @@ class StereoSlam:
             self.reset()
 
         if self.last_frame is None:
+            if self.tracking_only:
+                # localization-only: no map bootstrap, relocalize against the
+                # map that is there (the reference activates OnlyTracking on
+                # an existing map)
+                self.last_frame = cur
+                self.last_bindings = self._no_bindings(cur.features.capacity)
+                self._try_relocalize(cur)
+                self._log_pose(self.T_cw)
+                return self.T_cw
             # stereo initialization (reference: src/tracking.cpp:342-395)
             if int(torch.sum(cur.features.depth > 0)) < 100:
                 return None
+            self._ensure_vocab(cur)
             bindings = self._insert_keyframe(cur, self._no_bindings(cur.features.capacity))
             self.last_frame = cur
             self.last_bindings = bindings
@@ -779,6 +1011,18 @@ class StereoSlam:
         n_inl, tracked = int(stats[0]), int(stats[1])
         n_tracked_close, n_untracked_close = int(stats[2]), int(stats[3])
         self.last_stats = stats
+        if self.tracking_only:
+            # mbVO dual hypothesis (reference: src/tracking.cpp:1570-1640):
+            # below 10 map inliers the motion-model estimate carries the pose
+            # and relocalization runs every frame; a success snaps the
+            # tracker back onto the frozen map
+            self._vo_mode = n_inl < 10
+            self.lost = False
+            if self._vo_mode and self._try_relocalize(self.last_frame):
+                self._vo_mode = False
+                self.last_reloc_frame = self.frame_idx
+                self._relog_pose(self.T_cw)
+            return
         # strict acceptance within the post-reloc window (reference:
         # src/tracking.cpp:800-806)
         min_inliers = (50 if self.frame_idx < self.last_reloc_frame + cfg.tracking.max_frames

@@ -38,8 +38,13 @@ def row(x, i):
 
 
 def set_row(x, i, v):
-    """``x.at[i].set(v)`` for a 0-d integer tensor ``i``."""
+    """``x.at[i].set(v)`` for a 0-d integer tensor or a host integer ``i``
+    (a host integer indexes a copy: no host->device transfer)."""
     v = as_like(v, x)
+    if not isinstance(i, torch.Tensor):
+        out = x.clone()
+        out[int(i)] = v
+        return out
     return x.index_put((_long(i),), v.expand(x.shape[1:])[None])
 
 
@@ -75,7 +80,7 @@ def scatter_add(base, idx, vals):
 
 
 def topk_stable(x, k: int):
-    """``lax.top_k`` of a 1-D tensor: ``(values, indices)``, descending, the
-    lower index first among ties."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """``lax.top_k`` along the last axis: ``(values, indices)``, descending,
+    the lower index first among ties."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]

@@ -1,4 +1,4 @@
-"""Projection-guided frame <-> frame matching.
+"""Matching gated by projection or by BoW node (frame <-> frame / keyframe).
 
 Counterpart of the reference package's ``ops/matching.py`` (ORBmatcher
 SearchByProjection, reference: src/orbmatcher.cpp:1337-1483): the grid query
@@ -14,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from . import lie
-from .hamming import MAX_DIST, TH_HIGH, hamming_matrix, rotation_consistency_mask
+from .hamming import MAX_DIST, TH_HIGH, TH_LOW, hamming_matrix, rotation_consistency_mask
 
 
 class ProjectionMatches(NamedTuple):
@@ -106,6 +106,31 @@ def search_by_projection(
         ok = rotation_consistency_mask(src_angle, dst_features.angle, best, ok)
 
     return ProjectionMatches(dst_idx=best, dist=best_d, valid=ok)
+
+
+def search_by_bow(desc_a, node_a, valid_a, angle_a, desc_b, node_b, valid_b, angle_b, *,
+                  max_dist: int = TH_LOW, nn_ratio: float = 0.75,
+                  check_rotation: bool = True):
+    """BoW-node-gated descriptor matching (SearchByBoW, reference:
+    src/orbmatcher.cpp:164-292 KF<->frame and :531-663 KF<->KF).  The
+    reference walks the two feature vectors' shared vocabulary nodes; here
+    the node agreement is a dense boolean gate on the Hamming matrix: the
+    same association rule (same-node candidates, best + ratio test +
+    rotation histogram), one masked argmin.  Returns
+    ``(b_idx_per_a [A] int64, valid [A])``."""
+    gate = ((node_a[:, None] == node_b[None, :]) & (node_a[:, None] >= 0)
+            & valid_a[:, None] & valid_b[None, :])
+    big = MAX_DIST + 1
+    d = torch.where(gate, hamming_matrix(desc_a, desc_b), big)
+    best, best_d, second = _best_and_second(d, big)
+    ok = (best_d <= max_dist) & (
+        best_d.to(torch.float32) <= nn_ratio * second.to(torch.float32))
+    if check_rotation:
+        ok = rotation_consistency_mask(angle_a, angle_b, best, ok)
+    # one a per b (cross-duplicate resolution)
+    m = resolve_duplicate_targets(ProjectionMatches(dst_idx=best, dist=best_d, valid=ok),
+                                  desc_b.shape[0])
+    return m.dst_idx, m.valid
 
 
 def resolve_duplicate_targets(matches: ProjectionMatches, n_dst: int):

@@ -2,8 +2,9 @@
 
 The system has no learned weights: its state is the numpy-built constant
 tables (rebuilt identically on both sides), the tracker state
-``TrackState(T_cw, velocity, last_frame: FrameState, n_inliers)`` and the
-map ``MapState``.  These two functions move that state across as numpy
+``TrackState(T_cw, velocity, last_frame: FrameState, n_inliers)``, the map
+``MapState`` and the place-recognition state ``Vocabulary`` /
+``KeyFrameDatabase``.  These two functions move that state across as numpy
 arrays, so a test can start the port from the reference's state and compare
 step by step.
 """
@@ -14,18 +15,26 @@ import numpy as np
 import torch
 
 from ..models.frame import Features, FrameState
+from ..models.kfdb import KeyFrameDatabase
 from ..models.map_state import MapState
 from ..models.tracking import TrackState
+from ..models.vocabulary import Vocabulary
 
-_TYPES = {cls.__name__: cls for cls in (Features, FrameState, TrackState, MapState)}
-_DESC_FIELDS = {"Features": ("desc",), "MapState": ("kf_desc", "pt_desc")}
+_TYPES = {cls.__name__: cls for cls in (Features, FrameState, TrackState, MapState,
+                                        Vocabulary, KeyFrameDatabase)}
+_DESC_FIELDS = {"Features": ("desc",), "MapState": ("kf_desc", "pt_desc"),
+                "Vocabulary": ("node_desc",)}
 
 
 def from_jax_numpy(tree, device="cpu"):
     """Reference-package ``Features`` / ``FrameState`` / ``TrackState`` /
-    ``MapState`` (numpy or array-like leaves) -> the port's NamedTuples of
-    tensors on ``device``.  ``uint32`` leaves (descriptors) become the
-    ``int32`` tensors with the same bits."""
+    ``MapState`` / ``Vocabulary`` / ``KeyFrameDatabase`` (numpy or array-like
+    leaves) -> the port's NamedTuples of tensors on ``device``.  ``uint32``
+    leaves (descriptors) become the ``int32`` tensors with the same bits; a
+    Python integer (the vocabulary's ``levels``, ``branching``, ``n_words``)
+    passes through."""
+    if isinstance(tree, int):
+        return tree
     if hasattr(tree, "_fields"):
         cls = _TYPES[type(tree).__name__]
         return cls(*(from_jax_numpy(getattr(tree, f), device) for f in cls._fields))
@@ -37,8 +46,10 @@ def from_jax_numpy(tree, device="cpu"):
 
 def to_numpy(tree):
     """Inverse of :func:`from_jax_numpy`: the same NamedTuples with numpy
-    leaves; descriptors (``Features.desc``, ``MapState.kf_desc/pt_desc``)
-    come back as ``uint32``."""
+    leaves; descriptors (``Features.desc``, ``MapState.kf_desc/pt_desc``
+    and ``Vocabulary.node_desc``) come back as ``uint32``."""
+    if isinstance(tree, int):
+        return tree
     if hasattr(tree, "_fields"):
         out = {f: to_numpy(getattr(tree, f)) for f in tree._fields}
         for f in _DESC_FIELDS.get(type(tree).__name__, ()):

@@ -154,3 +154,106 @@ def test_slam_stages_on_card_equal_cpu(monkeypatch):
     torch.testing.assert_close(out_t.T_cw.cpu(), ref_t.T_cw, rtol=0, atol=1e-4)
     for name in ref_t._fields[1:]:
         assert torch.equal(getattr(out_t, name).cpu(), getattr(ref_t, name)), name
+
+
+# ---- place recognition on the card vs the CPU: integers identical, so the
+# first-minimum rule among tied distances holds on the card too -----------------
+
+
+def _descs(m, seed):
+    d = np.random.default_rng(seed).integers(0, 2**32, (m, 8), dtype=np.uint32)
+    return d.view(np.int32)
+
+
+def _vocab_and_sets():
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import vocabulary as voc
+
+    pool = _descs(3000, 0)
+    pool[1500:] = pool[:1500] ^ (1 << np.random.default_rng(1).integers(0, 31, (1500, 8)))
+    vocab = voc.train_vocabulary(pool, branching=10, levels=4, seed=0)
+    sets = torch.from_numpy(pool[:2400].reshape(12, 200, 8).copy())
+    valid = torch.from_numpy(np.random.default_rng(2).uniform(size=(12, 200)) < 0.9)
+    return voc, vocab, sets, valid
+
+
+@pytest.mark.cuda
+def test_transform_on_card_equals_cpu():
+    _require_cuda()
+    voc, vocab, sets, valid = _vocab_and_sets()
+    cvocab = voc.vocabulary_to(vocab, "cuda")
+    w_cpu, n_cpu = voc.transform_all(vocab, sets, valid)
+    w, n = voc.transform_all(cvocab, sets.cuda(), valid.cuda(), kf_chunk=5)
+    assert torch.equal(w.cpu(), w_cpu) and torch.equal(n.cpu(), n_cpu)
+    w1, n1 = voc.transform(cvocab, sets[3].cuda(), valid[3].cuda())
+    assert torch.equal(w1.cpu(), w_cpu[3]) and torch.equal(n1.cpu(), n_cpu[3])
+    rows = voc.bow_vectors(cvocab, w)
+    torch.testing.assert_close(rows.cpu(), voc.bow_vectors(vocab, w_cpu), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_detect_candidates_on_card_equals_cpu():
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import kfdb
+
+    voc, vocab, sets, valid = _vocab_and_sets()
+    words, _ = voc.transform_all(vocab, sets, valid)
+    rows = voc.bow_vectors(vocab, words)
+    db = kfdb.empty_kfdb(16, vocab.n_words)
+    for i in range(12):
+        db = kfdb.add_keyframe(db, i, rows[i])
+    c = np.triu(np.random.default_rng(3).integers(0, 3, (16, 16)), 1)   # tied weights
+    covis = torch.from_numpy((c + c.T).astype(np.int32))
+    exclude = torch.zeros(16, dtype=torch.bool)
+    exclude[2] = True
+    cdb = kfdb.KeyFrameDatabase(db.bow.cuda(), db.has_row.cuda())
+    for q in (4, 9):
+        query = 0.5 * (rows[q] + rows[(q + 5) % 12])
+        ref_c, ref_s = kfdb.detect_candidates(db, query, exclude, 0.0, covis)
+        out_c, out_s = kfdb.detect_candidates(cdb, query.cuda(), exclude.cuda(), 0.0,
+                                              covis.cuda())
+        assert torch.equal(out_c.cpu(), ref_c) and (ref_c >= 0).any()
+        torch.testing.assert_close(out_s.cpu(), ref_s, rtol=0, atol=1e-6)
+        assert torch.equal(kfdb.common_word_counts(cdb, query.cuda()).cpu(),
+                           kfdb.common_word_counts(db, query))
+
+
+@pytest.mark.cuda
+def test_search_by_bow_on_card_equals_cpu():
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops import matching
+
+    voc, vocab, sets, valid = _vocab_and_sets()
+    rng = np.random.default_rng(4)
+    a = sets[0]
+    b = a ^ torch.from_numpy((1 << rng.integers(0, 31, (200, 8))).astype(np.int32))
+    ang_a = torch.from_numpy(rng.uniform(0, 6.28, 200).astype(np.float32))
+    ang_b = ang_a + 0.02
+    _, na = voc.transform(vocab, a, valid[0])
+    _, nb = voc.transform(vocab, b, valid[1])
+    args = (a, na, valid[0], ang_a, b, nb, valid[1], ang_b)
+    ref_i, ref_ok = matching.search_by_bow(*args, nn_ratio=0.9)
+    out_i, out_ok = matching.search_by_bow(*(x.cuda() for x in args), nn_ratio=0.9)
+    assert torch.equal(out_ok.cpu(), ref_ok) and torch.equal(out_i.cpu(), ref_i)
+    assert ref_ok.sum() > 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [5000, 20000])
+def test_brute_match_points_on_card_equals_cpu(P):
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.models.relocalization import (
+        _brute_match_points,
+    )
+
+    rng = np.random.default_rng(P)
+    pts = _descs(P, 5)
+    pts[P // 2:] = pts[:P - P // 2]                       # twins: ties across blocks
+    pt_valid = torch.from_numpy(rng.uniform(size=P) < 0.8)
+    feat = torch.from_numpy(pts[rng.integers(0, P, 512)] ^ (1 << rng.integers(0, 31, (512, 8))))
+    feat_valid = torch.from_numpy(rng.uniform(size=512) < 0.9)
+    pts = torch.from_numpy(pts)
+    ref_i, ref_ok = _brute_match_points(feat, feat_valid, pts, pt_valid)
+    out_i, out_ok = _brute_match_points(feat.cuda(), feat_valid.cuda(), pts.cuda(),
+                                        pt_valid.cuda())
+    assert torch.equal(out_i.cpu(), ref_i) and torch.equal(out_ok.cpu(), ref_ok)
+    assert ref_ok.sum() > 300

@@ -36,6 +36,7 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import kernel_ab
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert not any(m.startswith("opendlv_perception_vision_orbslam2_tpu.") for m in sys.modules)
 print(" ".join(names))
@@ -45,6 +46,8 @@ print(" ".join(names))
 SLAM_MODULES = ("models.map_state", "models.triangulation", "models.fusion",
                 "models.local_mapping", "models.slam", "optim.ba", "optim.ba_grid",
                 "ops.indexing")
+# the place-recognition and relocalization slice's
+RELOC_MODULES = ("models.vocabulary", "models.kfdb", "models.relocalization")
 
 
 def test_port_imports_no_jax():
@@ -53,8 +56,8 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 28   # every module of the port was imported
-    assert {f"{PORT.name}.{m}" for m in SLAM_MODULES} <= names
+    assert len(names) >= 31   # every module of the port was imported
+    assert {f"{PORT.name}.{m}" for m in SLAM_MODULES + RELOC_MODULES} <= names
 
 
 @pytest.mark.parametrize("name", ["config.py", "trajectory.py"])

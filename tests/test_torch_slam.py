@@ -195,13 +195,37 @@ def test_slam_slice_matches_reference_per_frame(frames, reference_run, monkeypat
 
 @pytest.mark.parametrize("kwargs", [
     dict(enable_loop_closing=True, enable_relocalization=False),
-    dict(enable_loop_closing=False, enable_relocalization=True),
-    dict(OFF, vocab=object()),
-    dict(OFF, tracking_only=True),
+    dict(enable_relocalization=True),             # loop closing is on by default
 ])
 def test_disabled_features_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tslam.StereoSlam(TCFG, **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
+        tslam.StereoSlam(TCFG, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(enable_loop_closing=False),              # relocalization is on by default
+    dict(enable_loop_closing=False, enable_relocalization=True),
+    dict(OFF, vocab="given"),
+    dict(enable_loop_closing=False, tracking_only=True),
+    dict(OFF, tracking_only=True),
+])
+def test_ported_features_construct(kwargs):
+    """Relocalization, a given vocabulary and localization-only mode
+    construct; the place-recognition state starts empty."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import vocabulary as tvoc
+
+    if kwargs.get("vocab") == "given":
+        descs = np.random.default_rng(0).integers(0, 2**32, (300, 8), dtype=np.uint32)
+        kwargs = dict(kwargs, vocab=tvoc.train_vocabulary(descs, branching=4, levels=2))
+    slam = tslam.StereoSlam(TCFG, device="cpu", **kwargs)
+    assert slam.enable_relocalization == kwargs.get("enable_relocalization", True)
+    assert slam.tracking_only == kwargs.get("tracking_only", False) and not slam._vo_mode
+    assert slam.db is None and slam.kf_nodes is None
+    assert (slam.vocab is None) == ("vocab" not in kwargs)
+    # without a card the same calls raise instead of falling back to the CPU
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            tslam.StereoSlam(TCFG, **kwargs)
 
 
 def test_rgbd_raises_and_cuda_needs_a_card():
