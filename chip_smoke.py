@@ -49,21 +49,23 @@ and the final line is not printed:
     at 12 keyframes (the 8-keyframe retrain); after ``finish()`` the database
     has a row exactly for every live keyframe, every keyframe was registered,
     and each stored row and node table equals the one recomputed from the
-    map; 1 FAST + 2 gather launches per frame.  Prints ms/frame beside phase
-    9's, host ms per ``_register_keyframe``, the retrain thread's host
-    seconds, the swap's host and device ms, device busy time, idle share and
-    peak device memory;
+    map; 1 FAST + 2 gather launches per frame.  Prints ms/frame over frames
+    8-17 beside phase 9's over the same frames, host ms per
+    ``_register_keyframe``, the retrain thread's host seconds, the swap's
+    host and device ms, the device busy time of the run's last 6 frames
+    (torch.profiler), idle share and peak device memory;
 13. a kidnap on that map (``kidnap_drive``): 3 frames without a feature,
     then frames 6, 7, 8.  Prints every rung tried with its verdict and ms,
     the recovering rung, its inlier count and the pose error against ground
     truth; gate: not lost at frame 8, pose error there < KIDNAP_BOUND_M.
-    Then the relocalization rungs on frame 6 against the map, stage by
-    stage on the card and with everything moved to the CPU
-    (``reloc_card_vs_cpu``): candidates, BoW and brute matches, EPnP-RANSAC
-    from the same sets; a rung that recovers lands within the bound;
+    Then ``relocalize`` and ``relocalize_brute`` on frame 6 against the map,
+    on the card and with everything moved to the CPU, from the same RANSAC
+    sets (``reloc_card_vs_cpu``): same candidates, same BoW and brute
+    matches, per candidate the same verdict, bindings and pose (1e-3) of the
+    EPnP + ``refine_pose`` solve, and the same outcome of both rungs;
 14. localization-only mode: the two scenarios of tests/test_tracking_only.py
     at 512x256 (map frozen and ATE < 0.2 m; VO mode engages off the map and
-    every pose stays finite, over 32 frames), then at KITTI size on phase
+    every pose stays finite, over its 24 frames), then at KITTI size on phase
     12's map: a frame without a feature puts the tracker into VO mode,
     frames 12-17 must snap it back by relocalization with the map unchanged
     and a pose error at frame 17 < KIDNAP_BOUND_M.
@@ -290,21 +292,24 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
 def device_busy(fn, calls: int):
     """``(ms, ops)`` per call over ``calls`` calls of ``fn``: the durations
     of the kernels, copies and fills they put on the card, summed from
-    torch.profiler's CUPTI trace.  Raises when the trace holds no device
-    work."""
+    torch.profiler's CUPTI trace.  Only device activity is traced and the
+    trace's own records are read: building ``prof.events()`` for 6 SLAM
+    frames took 32 s (85 s with the host's operators traced too) against
+    2 s, for the same sums.  Raises when the trace holds no device work."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
+    dev_ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    if not dev_ns:
         raise AssertionError("torch.profiler traced no device work")
-    return sum(e.time_range.elapsed_us() for e in dev) / calls / 1e3, len(dev) / calls
+    return sum(dev_ns) / calls / 1e6, len(dev_ns) / calls
 
 
 def timed_pair(kernel_fn, plain_fn):
@@ -433,6 +438,29 @@ def pose_err(T, T_gt) -> float:
     return float(np.linalg.norm(_host(T)[:3, 3] - np.asarray(T_gt)[:3, 3]))
 
 
+def wrap_rungs(slam, note, before=None, sync=lambda: None):
+    """Wrap the four recovery rungs of ``slam`` (the port's or the reference
+    package's ``StereoSlam``): ``before(name)`` runs first, then the rung
+    between two ``sync()``s, then ``note(name, recovered, seconds)``.
+    ``unwrap_rungs`` gives the class's methods back."""
+    for name in RUNGS:
+        def wrapped(cur, _fn=getattr(slam, name), _name=name):
+            if before is not None:
+                before(_name)
+            sync()
+            t = time.perf_counter()
+            ok = _fn(cur)
+            sync()
+            note(_name, bool(ok), time.perf_counter() - t)
+            return ok
+        setattr(slam, name, wrapped)
+
+
+def unwrap_rungs(slam):
+    for name in RUNGS:
+        delattr(slam, name)
+
+
 def kidnap_drive(slam, lefts, rights, gt, fps, sync, n_blank: int = 3,
                  revisit=(6, 7, 8)):
     """On a ``StereoSlam`` that has tracked ``lefts``/``rights``: feed ``n_blank``
@@ -445,15 +473,8 @@ def kidnap_drive(slam, lefts, rights, gt, fps, sync, n_blank: int = 3,
     import numpy as np
 
     tried, frames, label = [], [], [None]
-    for name, short in RUNGS.items():
-        def timed(cur, _fn=getattr(slam, name), _short=short):
-            sync()
-            t = time.perf_counter()
-            ok = _fn(cur)
-            sync()
-            tried.append((label[0], _short, bool(ok), 1e3 * (time.perf_counter() - t)))
-            return ok
-        setattr(slam, name, timed)
+    wrap_rungs(slam, lambda name, ok, sec: tried.append((label[0], RUNGS[name], ok, 1e3 * sec)),
+               sync=sync)
     blank = np.full(lefts[0].shape, 100.0, np.float32)
     n = lefts.shape[0]
     feed = [(f"blank{k}", blank, blank, None) for k in range(n_blank)]
@@ -464,8 +485,7 @@ def kidnap_drive(slam, lefts, rights, gt, fps, sync, n_blank: int = 3,
         if not np.isfinite(_host(T)).all():
             raise AssertionError(f"kidnap: non-finite pose at {label[0]}")
         frames.append((label[0], bool(slam.lost), None if T_gt is None else pose_err(T, T_gt)))
-    for name in RUNGS:
-        delattr(slam, name)           # the class's methods again
+    unwrap_rungs(slam)
     return tried, frames
 
 
@@ -507,31 +527,36 @@ def to_cpu(tree):
 
 
 def reloc_card_vs_cpu(slam, frame, T_gt, cfg):
-    """The relocalization rungs on ``frame`` against ``slam``'s map, stage by
-    stage on the card and with everything moved to the CPU, the RANSAC sets
-    drawn once on the CPU and given to both.
+    """``relocalize`` and ``relocalize_brute`` on ``frame`` against ``slam``'s
+    map, on the card and with everything moved to the CPU, the RANSAC sets
+    drawn by one CPU generator (seeded alike before each call) and given to
+    both.
 
     Held exactly: the BoW matches against each of the first 5 candidates and
-    the brute matches against all points (integers).  Candidates are ranked
-    by a float sum over each one's covisible group; where the groups cover
-    the same keyframes the sums tie and rounding orders them, so the scores
-    must agree to 1e-6 and a slot that only one side lists must tie with the
-    other side's last.  EPnP-RANSAC from the same sets: where both count >=
-    10 inliers, the same count within 2 and the pose within 5e-3.  The final
-    pose optimization starts from matches with many outliers and amplifies a
-    1e-4 difference of its start (it may converge on one device and not on
-    the other), so the two verdicts are printed, not compared: a rung that
-    recovers must land within ``KIDNAP_BOUND_M`` of ground truth on either
-    device."""
+    the brute matches against all points (integers); per candidate the
+    verdict of the EPnP + ``refine_pose`` solve and, where it accepts, its
+    bindings; the outcome and bindings of both rungs.  Poses: 1e-3.
+    Candidates are ranked by a float sum over each one's covisible group;
+    where the groups cover the same keyframes the sums tie and rounding
+    orders them, so the scores must agree to 1e-6, a slot that only one side
+    lists must tie with the other side's last, and the CPU then visits the
+    candidates in the card's order.  ``relocalize`` must recover, within
+    ``KIDNAP_BOUND_M`` of ground truth.  Pose optimization over all matches
+    of a candidate, which the reference package runs and ``refine_pose``
+    replaces, is printed for both devices and not compared (its answer hangs
+    on rounding, tests/test_torch_reloc.py)."""
     import torch
 
     from opendlv_perception_vision_orbslam2_tpu_torch.models import kfdb, relocalization
     from opendlv_perception_vision_orbslam2_tpu_torch.models import vocabulary as voc
     from opendlv_perception_vision_orbslam2_tpu_torch.models.frame import features_scale_sigma2
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops import lie
     from opendlv_perception_vision_orbslam2_tpu_torch.ops.matching import search_by_bow
     from opendlv_perception_vision_orbslam2_tpu_torch.optim import pnp
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim.pose_opt import PoseObs, pose_optimize
 
     cam = cfg.camera
+    K = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf)
     card = (slam.map, slam.db, slam.kf_nodes, slam.vocab, frame)
     host = to_cpu(card)
 
@@ -539,9 +564,10 @@ def reloc_card_vs_cpu(slam, frame, T_gt, cfg):
         words, _ = voc.transform(vocab, fr.features.desc, fr.features.valid)
         slots, scores = kfdb.detect_candidates(db, voc.bow_vector(vocab, words), ~m.kf_valid,
                                                0.0, m.covis)
-        return slots.cpu(), scores.cpu()
+        return slots, scores
 
-    (slots_a, scores_a), (slots_b, scores_b) = candidates(*card), candidates(*host)
+    (slots_card, scores_card), (slots_b, scores_b) = candidates(*card), candidates(*host)
+    slots_a, scores_a = slots_card.cpu(), scores_card.cpu()
     only_one = set(slots_a.tolist()) ^ set(slots_b.tolist())
     tied = [sc for slots, scores in ((slots_a, scores_a), (slots_b, scores_b))
             for sl, sc in zip(slots.tolist(), scores.tolist()) if sl in only_one]
@@ -560,76 +586,108 @@ def reloc_card_vs_cpu(slam, frame, T_gt, cfg):
         safe = bind.clamp(0, m.pt_capacity - 1).long()
         return ok & (bind >= 0) & m.pt_valid[safe], bind, m.pt_pos[safe]
 
-    def epnp(fr, p_w, ok, idx):
-        feats = fr.features
-        return pnp.pnp_ransac(p_w, feats.xy, features_scale_sigma2(feats, cfg.orb.scale_factor),
-                              ok, None, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, idx=idx)
+    def same_result(what, res_a, res_b):
+        """Verdict, bindings and pose (1e-3) of two ``RelocResult``s (or None)."""
+        ok_a, ok_b = (r is not None and r.success for r in (res_a, res_b))
+        if ok_a != ok_b:
+            raise AssertionError(f"reloc: {what} accepts on the card: {ok_a}, on the CPU: {ok_b}")
+        if not ok_a:
+            return "declined"
+        d = float((res_a.T_cw.cpu() - res_b.T_cw).abs().max())
+        if not torch.equal(res_a.bindings.cpu(), res_b.bindings) or d > 1e-3:
+            n_diff = int((res_a.bindings.cpu() != res_b.bindings).sum())
+            raise AssertionError(f"reloc: {what}: {n_diff} bindings differ between card and "
+                                 f"CPU, poses differ by {d}")
+        return f"{int((res_b.bindings >= 0).sum())} bindings, poses within {d:.1e}"
 
-    g = torch.Generator().manual_seed(0)
-    pairs, pnp_counts, pnp_diff = [], [], 0.0
-    for cand in [c for c in slots_a.tolist() if c >= 0][:5]:
-        ok_a, bind_a, pw_a = bow_pairs(*card, cand)
-        ok_b, bind_b, pw_b = bow_pairs(*host, cand)
-        if not torch.equal(ok_a.cpu(), ok_b) or not torch.equal(bind_a.cpu()[ok_b], bind_b[ok_b]):
-            raise AssertionError(f"reloc: BoW matches against keyframe slot {cand} differ "
-                                 "between card and CPU")
-        pairs.append(int(ok_b.sum()))
-        idx = pnp.sample_sets(ok_b, g)
-        res_a, res_b = epnp(card[4], pw_a, ok_a, idx), epnp(host[4], pw_b, ok_b, idx)
-        n_a, n_b = int(res_a.n_inliers), int(res_b.n_inliers)
-        pnp_counts.append(f"{n_a}/{n_b}")
-        if min(n_a, n_b) >= 10:
-            d = max(float((res_a.R.cpu() - res_b.R).abs().max()),
-                    float((res_a.t.cpu() - res_b.t).abs().max()))
-            pnp_diff = max(pnp_diff, d)
-            if abs(n_a - n_b) > 2 or d > 5e-3:
-                raise AssertionError(f"reloc: EPnP against slot {cand}: inliers {n_a} on the "
-                                     f"card, {n_b} on the CPU, pose differs by {d}")
-    feats = frame.features
-    best_a, okb_a = relocalization._brute_match_points(feats.desc, feats.valid, slam.map.pt_desc,
-                                                       slam.map.pt_valid)
-    best_b, okb_b = relocalization._brute_match_points(host[4].features.desc,
-                                                       host[4].features.valid, host[0].pt_desc,
-                                                       host[0].pt_valid)
-    if not torch.equal(best_a.cpu(), best_b) or not torch.equal(okb_a.cpu(), okb_b):
-        raise AssertionError("reloc: brute matches differ between card and CPU")
+    inner_sets, inner_detect = pnp.sample_sets, relocalization.detect_candidates
 
-    verdicts = []
-    for where, (m, db, kf_nodes, vocab, fr) in (("card", card), ("CPU", host)):
+    def sets_from(seed):
+        g = torch.Generator().manual_seed(seed)
+        return lambda valid, generator=None, n=pnp.N_HYPOTHESES: inner_sets(valid.cpu(), g, n)
+
+    pairs, solves, all_matches = [], [], []
+    try:
+        for cand in [c for c in slots_a.tolist() if c >= 0][:5]:
+            ok_a, bind_a, pw_a = bow_pairs(*card, cand)
+            ok_b, bind_b, pw_b = bow_pairs(*host, cand)
+            if not torch.equal(ok_a.cpu(), ok_b) or not torch.equal(bind_a.cpu()[ok_b],
+                                                                    bind_b[ok_b]):
+                raise AssertionError(f"reloc: BoW matches against keyframe slot {cand} differ "
+                                     "between card and CPU")
+            pairs.append(int(ok_b.sum()))
+            out = []
+            for fr, p_w, ok, bind in ((card[4], pw_a, ok_a, bind_a), (host[4], pw_b, ok_b, bind_b)):
+                pnp.sample_sets = sets_from(100 + cand)
+                out.append(relocalization._solve(p_w, ok, bind, fr, cfg, None))
+                # the reference package's composition, from the same EPnP pose
+                pnp.sample_sets = sets_from(100 + cand)
+                feats = fr.features
+                sigma2 = features_scale_sigma2(feats, cfg.orb.scale_factor)
+                res = pnp.pnp_ransac(p_w, feats.xy, sigma2, ok, None, fx=cam.fx, fy=cam.fy,
+                                     cx=cam.cx, cy=cam.cy)
+                obs = PoseObs(p_w, feats.xy, feats.u_right, sigma2, ok)
+                out.append(int(pose_optimize(lie.make_T(res.R, res.t), obs, **K)[2])
+                           if int(res.n_inliers) >= 10 else None)
+            solves.append(f"slot {cand}: " + same_result(f"the solve against slot {cand}",
+                                                         out[0], out[2]))
+            all_matches.append(f"{out[1]}/{out[3]}")
+
+        feats = frame.features
+        best_a, okb_a = relocalization._brute_match_points(feats.desc, feats.valid,
+                                                           slam.map.pt_desc, slam.map.pt_valid)
+        best_b, okb_b = relocalization._brute_match_points(host[4].features.desc,
+                                                           host[4].features.valid,
+                                                           host[0].pt_desc, host[0].pt_valid)
+        if not torch.equal(best_a.cpu(), best_b) or not torch.equal(okb_a.cpu(), okb_b):
+            raise AssertionError("reloc: brute matches differ between card and CPU")
+
+        rungs = []
         for name, call in (
-                ("relocalize", lambda: relocalization.relocalize(
-                    m, db, kf_nodes, vocab, fr, cfg,
-                    torch.Generator(device=fr.T_cw.device).manual_seed(11))),
-                ("relocalize_brute", lambda: relocalization.relocalize_brute(
-                    m, fr, cfg, torch.Generator(device=fr.T_cw.device).manual_seed(11)))):
-            t = time.perf_counter()
-            res = call()
-            ms = 1e3 * (time.perf_counter() - t)
-            if not res.success:
-                verdicts.append(f"{name} on the {where}: declined ({ms:.0f} ms)")
-                continue
-            err = pose_err(res.T_cw, T_gt)
-            verdicts.append(f"{name} on the {where}: recovered, {int((res.bindings >= 0).sum())} "
-                            f"bindings, pose error {err:.4f} m ({ms:.0f} ms)")
-            if not err < KIDNAP_BOUND_M:
-                raise AssertionError(f"{name} on the {where} recovered {err:.4f} m from ground "
-                                     f"truth (bound {KIDNAP_BOUND_M})")
-    print(f"reloc_card_vs_cpu: frame 6 against the map | candidates on the card "
-          f"{[c for c in slots_a.tolist() if c >= 0]}, on the CPU "
+                ("relocalize", lambda m, db, kf_nodes, vocab, fr: relocalization.relocalize(
+                    m, db, kf_nodes, vocab, fr, cfg, None)),
+                ("relocalize_brute", lambda m, db, kf_nodes, vocab, fr:
+                    relocalization.relocalize_brute(m, fr, cfg, None))):
+            res, ms = [], []
+            for state in (card, host):
+                pnp.sample_sets = sets_from(11)
+                # the CPU visits the candidates in the card's order
+                relocalization.detect_candidates = (
+                    inner_detect if state is card
+                    else lambda *a, **k: (slots_a, scores_a))
+                t = time.perf_counter()
+                res.append(call(*state))
+                ms.append(1e3 * (time.perf_counter() - t))
+            verdict = same_result(name, *res)
+            if res[0].success:
+                err = pose_err(res[0].T_cw, T_gt)
+                verdict += f", {err:.4f} m from ground truth"
+                if not err < KIDNAP_BOUND_M:
+                    raise AssertionError(f"{name} recovered {err:.4f} m from ground truth "
+                                         f"(bound {KIDNAP_BOUND_M})")
+            elif name == "relocalize":
+                raise AssertionError("reloc: relocalize declined on frame 6")
+            rungs.append(f"{name}: {verdict} ({ms[0]:.0f} ms on the card, {ms[1]:.0f} on the CPU)")
+    finally:
+        pnp.sample_sets, relocalization.detect_candidates = inner_sets, inner_detect
+    print(f"reloc_card_vs_cpu: frame 6 against the map, same RANSAC sets | candidates on the "
+          f"card {[c for c in slots_a.tolist() if c >= 0]}, on the CPU "
           f"{[c for c in slots_b.tolist() if c >= 0]}: scores equal to 1e-6, {len(only_one)} "
           f"slot(s) on one side only, tied with the last | BoW matches against the first 5 "
-          f"identical ({'/'.join(map(str, pairs))} pairs) | EPnP inliers card/CPU "
-          f"{', '.join(pnp_counts)}, poses within {pnp_diff:.1e} where both >= 10 | brute "
-          f"matches identical ({int(okb_b.sum())} of {int(feats.valid.sum())} features) | "
-          + " | ".join(verdicts), flush=True)
+          f"identical ({'/'.join(map(str, pairs))} pairs) | EPnP + refine_pose, card = CPU: "
+          f"{'; '.join(solves)} | brute matches identical ({int(okb_b.sum())} of "
+          f"{int(feats.valid.sum())} features) | " + " | ".join(rungs)
+          + " | not compared: inliers of pose optimization over all matches, card/CPU per "
+          f"candidate: {', '.join(all_matches)}", flush=True)
 
 
-def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_ms, n_timed,
+def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_lat, n_timed,
                  n_prof_slam):
     """Phases 12-14 (see the module's docstring) on the KITTI-size frames
     ``lefts``/``rights`` with ground truth ``gt`` and the 512x256 fixture
     config ``fcfg``; ``expected`` are the launch counts of one pass over the
-    frames, ``slam_ms`` phase 9's ms/frame.  Returns phase 12's launch counts."""
+    frames, ``slam_lat`` phase 9's seconds per frame.  Returns phase 12's
+    launch counts."""
     import numpy as np
     import torch
 
@@ -638,6 +696,7 @@ def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_ms, n_timed,
 
     cam = cfg.camera
     n_frames = lefts.shape[0]
+    t_phase = [time.perf_counter()]
 
     # -- 12. place recognition and relocalization at KITTI size --------------
     from opendlv_perception_vision_orbslam2_tpu_torch.models import vocabulary as voc
@@ -645,28 +704,48 @@ def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_ms, n_timed,
 
     torch.cuda.reset_peak_memory_stats()
     slam = slam_mod.StereoSlam(cfg, device=dev, enable_loop_closing=False)
-    spans, registered, swaps_at = {}, [], []
+    spans, registered, swaps_at, train_s = {}, [], [], []
     host_spans(slam, ("_register_keyframe", "_adopt_vocab"), spans)
     for name, sink in (("_register_keyframe", registered), ("_adopt_vocab", swaps_at)):
         def noted(*args, _fn=getattr(slam, name), _sink=sink):
             _sink.append((slam.n_keyframes,) + args)
             return _fn(*args)
         setattr(slam, name, noted)
-    reset_launches()
-    lat = drive_slam(slam, lefts[:1], rights[:1], cam.fps)
-    if slam.vocab is None or slam.vocab.n_words != 10 ** 4:
-        raise AssertionError("reloc: no vocabulary was trained from frame 0")
-    lat += drive_slam(slam, lefts[1:], rights[1:], cam.fps, start=1)
-    reloc_launches = read_launches()
-    slam.finish()
+    inner_train = slam_mod.train_vocab_from_pool
+
+    def timed_train(*args):       # runs in the retrain's worker thread
+        t = time.perf_counter()
+        out = inner_train(*args)
+        train_s.append(time.perf_counter() - t)
+        return out
+
+    slam_mod.train_vocab_from_pool = timed_train
+    try:
+        reset_launches()
+        lat = drive_slam(slam, lefts[:1], rights[:1], cam.fps)
+        if slam.vocab is None or slam.vocab.n_words != 10 ** 4:
+            raise AssertionError("reloc: no vocabulary was trained from frame 0")
+        n_plain = n_frames - n_prof_slam
+        lat += drive_slam(slam, lefts[1:n_plain], rights[1:n_plain], cam.fps, start=1)
+        # the run's last frames under the profiler: device busy time
+        todo = iter(range(n_plain, n_frames))
+        busy_ms, ops = device_busy(next_slam_frame_of(slam, todo, lefts, rights, cam.fps),
+                                   n_prof_slam)
+        reloc_launches = read_launches()
+        slam.finish()
+    finally:
+        slam_mod.train_vocab_from_pool = inner_train
     torch.cuda.synchronize()
     if slam.lost:
         raise AssertionError("reloc: tracking lost at the last frame")
+    if not all(np.isfinite(T.cpu().numpy()).all() for T in slam.trajectory):
+        raise AssertionError("reloc: non-finite pose")
     if reloc_launches != expected:
         raise AssertionError(f"reloc: kernel launches {reloc_launches}, expected {expected}")
-    if slam.vocab_swaps != 1 or [n for n, _ in swaps_at] != [12]:
+    if [n for n, _ in swaps_at] != [12] or len(train_s) != 1:
         raise AssertionError(f"reloc: vocabulary swaps at keyframe counts "
-                             f"{[n for n, _ in swaps_at]}, expected one, at 12")
+                             f"{[n for n, _ in swaps_at]}, expected one, at 12, from one "
+                             f"retrain (ran {len(train_s)})")
     if slam._next_vocab_refresh != 32 or slam._vocab_thread is not None:
         raise AssertionError("reloc: the retrain schedule is not (next at 32, none in flight)")
     m, db = slam.map, slam.db
@@ -681,35 +760,27 @@ def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_ms, n_timed,
     if row_err > 1e-6 or not torch.equal(nodes[db.has_row], slam.kf_nodes[db.has_row]):
         raise AssertionError(f"reloc: stored BoW rows (max abs err {row_err}) or node tables "
                              "differ from the ones recomputed from the map")
-    reloc_ms = 1e3 * float(np.mean(lat[n_frames - n_timed:]))
+    timed = slice(n_frames - n_timed, n_plain)
+    reloc_ms = 1e3 * float(np.mean(lat[timed]))
     reg_ms = [1e3 * dt for dt, _, _ in spans["_register_keyframe"]]
     swap_host, swap_start, swap_end = spans["_adopt_vocab"][0]
     print(f"reloc_kitti: {n_frames} frames 1241x376, relocalization on, async mapping | "
-          f"{reloc_ms:.2f} ms/frame over last {n_timed} (phase 9 without place recognition: "
-          f"{slam_ms:.2f}) | keyframes {slam.n_keyframes} (valid {int(m.kf_valid.sum())}) | map "
+          f"{reloc_ms:.2f} ms/frame over frames {timed.start}-{timed.stop - 1} (phase 9 without "
+          f"place recognition, same frames: {1e3 * float(np.mean(slam_lat[timed])):.2f}) | "
+          f"keyframes {slam.n_keyframes} (valid {int(m.kf_valid.sum())}) | map "
           f"points {int(m.pt_valid.sum())} | vocabulary from frame 0, retrained at 8 keyframes "
-          f"in {slam.vocab_train_seconds:.2f} s host (worker thread), swapped at 12: "
+          f"in {train_s[0]:.2f} s host (worker thread), swapped at 12: "
           f"{1e3 * swap_host:.1f} ms host, {swap_start.elapsed_time(swap_end):.1f} ms device | "
           f"_register_keyframe host ms: median {np.median(reg_ms):.2f}, max {max(reg_ms):.1f} "
           f"x{len(reg_ms)} | database rows {int(db.has_row.sum())}, max abs err vs recomputed "
           f"{row_err:.1e} | peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
           f"| launches/frame {per_frame(reloc_launches, n_frames)}", flush=True)
-    kidnapped = slam      # phases 13 and 14 go on from this map
-
-    # device busy and idle share of the same path: a second run, its last 6
-    # frames under the profiler
-    slam = slam_mod.StereoSlam(cfg, device=dev, enable_loop_closing=False)
-    drive_slam(slam, lefts[:n_frames - n_prof_slam], rights[:n_frames - n_prof_slam], cam.fps)
-    todo = iter(range(n_frames - n_prof_slam, n_frames))
-    busy_ms, ops = device_busy(next_slam_frame_of(slam, todo, lefts, rights, cam.fps),
-                               n_prof_slam)
-    slam.finish()
     print(f"reloc_kitti_time: device busy {busy_ms:.2f} ms/frame in {ops:.0f} device ops "
-          f"(torch.profiler, frames {n_frames - n_prof_slam}-{n_frames - 1}) | idle share "
+          f"(torch.profiler, frames {n_plain}-{n_frames - 1} of the same run) | idle share "
           f"{1 - busy_ms / reloc_ms:.3f} of {reloc_ms:.2f} ms/frame", flush=True)
 
+    t_phase.append(time.perf_counter())
     # -- 13. a kidnap on phase 12's map ---------------------------------------
-    slam = kidnapped
     tried, fed = kidnap_drive(slam, lefts, rights, gt, cam.fps, torch.cuda.synchronize)
     recovered = [t for t in tried if t[2]]
     label, lost_end, err_end = fed[-1]
@@ -729,7 +800,9 @@ def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_ms, n_timed,
     frame = process_stereo(torch.from_numpy(lefts[6]).to(dev), torch.from_numpy(rights[6]).to(dev),
                            cfg, 0.0)
     reloc_card_vs_cpu(slam, frame, gt[6], cfg)
+    kidnapped = slam      # phase 14 goes on from this map
 
+    t_phase.append(time.perf_counter())
     # -- 14. localization-only mode -----------------------------------------
     # the two scenarios of tests/test_tracking_only.py at 512x256
     tl, tr_, tgt, _ = synthetic.render_stereo_sequence(fcfg, n_frames=16, n_points=500, seed=5,
@@ -747,15 +820,24 @@ def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_ms, n_timed,
         raise AssertionError("tracking_only: the frozen map changed")
     if not ate_only < 0.2:
         raise AssertionError(f"tracking_only: ATE {ate_only:.4f} m >= 0.2 m")
-    # off the map: 32 frames where the reference test drives 24, because the
-    # port inserts a third keyframe within the first 6 frames and its map
-    # reaches further (tests/test_torch_tracking_only.py)
-    n_off = 32
+    # off the map: the reference test's 24 frames
+    n_off = 24
     tl, tr_, _, _ = synthetic.render_stereo_sequence(fcfg, n_frames=n_off, n_points=500, seed=5,
                                                      step=0.6)
     slam = slam_mod.StereoSlam(fcfg, device=dev, enable_loop_closing=False)
+    decisions, inner_need = [], slam._need_new_keyframe
+
+    def noted_need(tracked, n_tracked_close, n_untracked_close):
+        # the keyframe rule's inputs: the count of keyframes built here sets
+        # where the map ends, and it hangs on "> 70 untracked close points"
+        need = inner_need(tracked, n_tracked_close, n_untracked_close)
+        decisions.append(f"{n_tracked_close}/{n_untracked_close}{'*' if need else ''}")
+        return need
+
+    slam._need_new_keyframe = noted_need
     drive_slam(slam, tl[:6], tr_[:6], fcfg.camera.fps)
     slam.finish()
+    del slam._need_new_keyframe
     kfs_off = slam.n_keyframes
     slam.tracking_only = True
     vo_frames = []
@@ -768,7 +850,8 @@ def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_ms, n_timed,
                              f"{kfs_off} -> {slam.n_keyframes}")
     print(f"tracking_only_fixture: 512x256 | frozen map: 10 + 6 frames, keyframes "
           f"{kfs_before} and map points {pts_before} unchanged, ATE {ate_only:.4f} m (bound "
-          f"0.2 m) | off the map: {kfs_off} keyframes over 6 frames, then {n_off - 6} frames "
+          f"0.2 m) | off the map: {kfs_off} keyframes over 6 frames (close points tracked/"
+          f"untracked at frames 1-5, * = keyframe: {' '.join(decisions)}), then {n_off - 6} frames "
           f"at step 0.6: VO mode from frame {vo_frames[0]} on {len(vo_frames)} frames, every "
           f"pose finite", flush=True)
 
@@ -818,6 +901,9 @@ def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_ms, n_timed,
     if not errs[-1] < KIDNAP_BOUND_M:
         raise AssertionError(f"tracking_only: pose error {errs[-1]:.4f} m at frame 17 "
                              f"(bound {KIDNAP_BOUND_M})")
+    t_phase.append(time.perf_counter())
+    print("reloc_phases_seconds: phase 12 / 13 / 14: "
+          + " / ".join(f"{b - a:.1f}" for a, b in zip(t_phase, t_phase[1:])), flush=True)
 
     return reloc_launches
 
@@ -1085,7 +1171,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     slam = slam_mod.StereoSlam(cfg, device=dev, **SLAM_OFF)
     reset_launches()
-    lat = drive_slam(slam, lefts, rights, cam.fps)
+    slam_lat = lat = drive_slam(slam, lefts, rights, cam.fps)
     slam_launches = read_launches()
     slam.finish()          # settles the last frame's deferred decision
     if slam.lost:
@@ -1166,7 +1252,7 @@ def main() -> int:
           f"{n_far} (bound > 30), median rel err {rel_far:.4f} (bound 0.04)", flush=True)
 
     # -- 12-14. place recognition, relocalization, localization-only mode ---
-    reloc_launches = reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_ms,
+    reloc_launches = reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_lat,
                                   n_timed, n_prof_slam)
 
     kernels = [

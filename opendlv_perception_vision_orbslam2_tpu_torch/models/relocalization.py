@@ -3,11 +3,11 @@
 Counterpart of the reference package's ``models/relocalization.py``
 (Tracking::Relocalization, reference: src/tracking.cpp:1177-1338): query the
 keyframe database, BoW-match each candidate (>= 15 matches), run EPnP RANSAC,
-then pose-optimize and accept at >= 50 inliers.  Candidates are few and
-relocalization is rare, so the per-candidate loop stays on the host and
-reads its gate counts back; each stage is one batched program.  The RANSAC
-sets come from ``generator``, which advances from call to call as the
-reference package splits its key.
+then pose-optimize from its consensus set (``refine_pose``) and accept at >=
+50 inliers.  Candidates are few and relocalization is rare, so the
+per-candidate loop stays on the host and reads its gate counts back; each
+stage is one batched program.  The RANSAC sets come from ``generator``, which
+advances from call to call as the reference package splits its key.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from ..ops import lie
 from ..ops.hamming import MAX_DIST, TH_LOW, hamming_matrix
 from ..ops.matching import search_by_bow
 from ..optim.pnp import pnp_ransac
-from ..optim.pose_opt import PoseObs, pose_optimize
+from ..optim.pose_opt import PoseObs, classify_inliers, pose_optimize
 from ..utils.config import SystemConfig
 from . import vocabulary as voc
 from .frame import FrameState, features_scale_sigma2
@@ -38,8 +38,32 @@ class RelocResult(NamedTuple):
     bindings: Optional[torch.Tensor]
 
 
+def refine_pose(T_pnp, obs: PoseObs, consensus, *, fx: float, fy: float, cx: float,
+                cy: float, bf: float):
+    """The pose solve behind both relocalization rungs, from the EPnP pose
+    ``T_pnp`` and its consensus set ``consensus [K]`` over the
+    correspondences ``obs``.  Returns ``(T_cw, inliers [K])``.
+
+    The Gauss-Newton runs over the consensus set alone, the chi2 test then
+    picks the inliers among every correspondence at that pose, and a second
+    optimization runs over those: Relocalization hands PoseOptimization the
+    PnP inliers only and optimizes again once it has more matches
+    (reference: src/tracking.cpp:1262-1310), and the RANSAC-seeded chain of
+    ``robust_pose_estimate`` starts the same way.  The reference package
+    optimizes over all of ``obs.valid`` instead: appearance matches with
+    about half outliers pull the Huber rounds off the EPnP pose, the first
+    chi2 reclassification can leave two inliers, and the remaining rounds
+    solve a rank-deficient system whose answer is decided by rounding."""
+    K = dict(fx=fx, fy=fy, cx=cx, cy=cy, bf=bf)
+    T, _, _ = pose_optimize(T_pnp, obs._replace(valid=obs.valid & consensus), **K)
+    # once more over every correspondence that pose explains: the matches
+    # EPnP's consensus missed now move the pose too
+    T, _, _ = pose_optimize(T, obs._replace(valid=classify_inliers(T, obs, **K)), **K)
+    return T, classify_inliers(T, obs, **K)
+
+
 def _solve(p_w, ok, bind, frame: FrameState, config: SystemConfig, generator):
-    """EPnP RANSAC (>= 10 inliers) then pose optimization (>= 50) on the
+    """EPnP RANSAC (>= 10 inliers) then ``refine_pose`` (>= 50) on the
     correspondences ``feature i <-> p_w[i]`` where ``ok``; ``bind`` are the
     point slots the accepted bindings take."""
     cam = config.camera
@@ -50,11 +74,11 @@ def _solve(p_w, ok, bind, frame: FrameState, config: SystemConfig, generator):
     if int(res.n_inliers) < 10:
         return None
     obs = PoseObs(p_w=p_w, uv=feats.xy, u_right=feats.u_right, sigma2=sigma2, valid=ok)
-    T_est, inliers, n_inl = pose_optimize(lie.make_T(res.R, res.t), obs, fx=cam.fx, fy=cam.fy,
-                                          cx=cam.cx, cy=cam.cy, bf=cam.bf)
-    if int(n_inl) < MIN_FINAL_INLIERS:
+    T_est, inliers = refine_pose(lie.make_T(res.R, res.t), obs, res.inliers, fx=cam.fx,
+                                 fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf)
+    if int(inliers.sum()) < MIN_FINAL_INLIERS:
         return None
-    return RelocResult(True, T_est, torch.where(ok & inliers, bind, -1))
+    return RelocResult(True, T_est, torch.where(inliers, bind, -1))
 
 
 def relocalize(m: MapState, db: KeyFrameDatabase, kf_nodes, vocab: voc.Vocabulary,

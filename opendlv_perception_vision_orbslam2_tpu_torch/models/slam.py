@@ -23,7 +23,6 @@ map point slots (-1 = none), the analogue of ``OrbFrame::m_mapPoints``.
 from __future__ import annotations
 
 import threading
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -493,9 +492,6 @@ class StereoSlam:
         self._vocab_swap_at = 0
         self._vocab_thread = None
         self._vocab_result = None
-        #: observability: the last retrain's host seconds, the swaps so far
-        self.vocab_train_seconds = None
-        self.vocab_swaps = 0
         #: True: every decision and mapping stage synchronous (tests)
         self.force_sync_decisions = False
         self.trajectory: list = []
@@ -646,9 +642,7 @@ class StereoSlam:
 
         def work():
             descs, feat_ok = fetch.result()     # host arrays, once the copy landed
-            t = time.perf_counter()
             self._vocab_result = train_vocab_from_pool(descs, feat_ok, rng, int(due))
-            self.vocab_train_seconds = time.perf_counter() - t
 
         self._vocab_result = None
         self._vocab_thread = threading.Thread(target=work, daemon=True)
@@ -665,7 +659,6 @@ class StereoSlam:
             bow=torch.where(live[:, None], voc.bow_vectors(vocab, words), 0.0),
             has_row=live)
         self.kf_nodes = torch.where(live[:, None], nodes, -1)
-        self.vocab_swaps += 1
 
     def _register_keyframe(self, slot: int, kf_id: int):
         """BoW row + node table for a new keyframe, at adoption time, after

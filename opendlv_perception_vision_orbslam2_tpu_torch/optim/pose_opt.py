@@ -147,6 +147,14 @@ def pose_optimize(T_cw_init, obs: PoseObs, *, fx: float, fy: float,
     return T[0], inl[0], n[0]
 
 
+def classify_inliers(T_cw, obs: PoseObs, *, fx: float, fy: float, cx: float,
+                     cy: float, bf: float):
+    """chi2 inlier mask ``[K]`` of ``obs`` (within ``obs.valid``) under the
+    single pose ``T_cw``: the test that ends every round of
+    ``pose_optimize``."""
+    return _classify(T_cw[None], obs, obs.valid[None], fx, fy, cx, cy, bf)[0]
+
+
 def robust_pose_estimate(T_pred, obs: PoseObs, generator=None, *, fx: float,
                          fy: float, cx: float, cy: float, bf: float,
                          pnp_idx=None):

@@ -17,12 +17,21 @@ Tolerances, and why:
   the same numpy trainer);
 - poses of the recovery programs: 5 mm and 1e-3 rad, the bound the SLAM
   slice holds per frame (Gauss-Newton sums in another order);
+- ``relocalize`` / ``relocalize_brute``: the port optimizes the pose over
+  the EPnP consensus set and counts inliers over all matches afterwards,
+  where the reference optimizes over all matches (about half of them
+  outliers, and then the result hangs on rounding).  The tests hold the port
+  to the reference's own building blocks composed that way
+  (``_reference_solves_like_the_port``), bindings identical and poses as
+  above, and to the unchanged reference for the verdict;
 - BoW rows: 1e-6 (float32 sums over the words in another order).
 """
 
 import copy
 import threading
+from pathlib import Path
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,12 +43,16 @@ from opendlv_perception_vision_orbslam2_tpu.models import frontend as jfront
 from opendlv_perception_vision_orbslam2_tpu.models import relocalization as jreloc
 from opendlv_perception_vision_orbslam2_tpu.models import slam as jslam
 from opendlv_perception_vision_orbslam2_tpu.models import vocabulary as jvoc
+from opendlv_perception_vision_orbslam2_tpu.optim import pnp as jpnp
+from opendlv_perception_vision_orbslam2_tpu.optim import pose_opt as jpose
 from opendlv_perception_vision_orbslam2_tpu.utils import config as jconfig
 from opendlv_perception_vision_orbslam2_tpu.utils import synthetic as jsyn
 from opendlv_perception_vision_orbslam2_tpu_torch.models import relocalization as treloc
 from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as tslam
 from opendlv_perception_vision_orbslam2_tpu_torch.models import vocabulary as tvoc
+from opendlv_perception_vision_orbslam2_tpu_torch.ops import lie as tlie
 from opendlv_perception_vision_orbslam2_tpu_torch.optim import pnp as tpnp
+from opendlv_perception_vision_orbslam2_tpu_torch.optim import pose_opt as tpose
 from opendlv_perception_vision_orbslam2_tpu_torch.utils import config as tconfig
 from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic as tsyn
 from opendlv_perception_vision_orbslam2_tpu_torch.utils.convert import from_jax_numpy, to_numpy
@@ -51,8 +64,7 @@ CAM_CFG = dict(fx=320.0, fy=320.0, cx=256.0, cy=128.0, bf=160.0, width=512, heig
 ORB = dict(n_features=600, max_keypoints=1024, n_levels=4)
 N_FRAMES = 10   # keyframes at frames 0, 2, 9
 RELOC = dict(enable_loop_closing=False, enable_relocalization=True)
-RUNGS = ("_track_reference_keyframe", "_try_relocalize", "_try_wide_recovery",
-         "_try_global_reloc")
+RUNGS = tuple(chip_smoke.RUNGS)
 
 
 def _configs(max_map_points, **tracking):
@@ -119,14 +131,37 @@ def _log_rungs(slam, log, chain=None):
     """Wrap the four rungs of ``slam``: append ``(rung, recovered)`` to
     ``log``; ``chain`` (the port's side) advances where the reference's ``StereoSlam``
     splits its key."""
-    for name in RUNGS:
-        def wrapped(cur, _fn=getattr(slam, name), _name=name):
-            if chain is not None and _splits_key(slam, _name):
-                chain.enter(_name)
-            ok = _fn(cur)
-            log.append((_name, bool(ok)))
-            return ok
-        setattr(slam, name, wrapped)
+    def before(name):
+        if chain is not None and _splits_key(slam, name):
+            chain.enter(name)
+
+    chip_smoke.wrap_rungs(slam, lambda name, ok, _seconds: log.append((name, ok)), before)
+
+
+def _reference_solves_like_the_port(mp):
+    """Patch (for one test) the reference's relocalization module so that its
+    pose optimization runs over the EPnP consensus set, then once more over
+    the chi2 inliers among all matches at that pose: the reference's own
+    ``pnp_ransac``, ``pose_optimize`` and chi2, composed as the port's
+    ``relocalization._solve`` composes them."""
+    last = {}
+
+    def pnp_ransac(*args, **kwargs):
+        last["res"] = jpnp.pnp_ransac(*args, **kwargs)
+        return last["res"]
+
+    def pose_optimize(T, obs, **cam):
+        K = tuple(cam[k] for k in ("fx", "fy", "cx", "cy", "bf"))
+        th = jnp.where(obs.u_right >= 0, jpose.CHI2_STEREO, jpose.CHI2_MONO)
+        inliers = obs.valid & last["res"].inliers
+        for _ in range(2):
+            T, _, _ = jpose.pose_optimize(T, obs._replace(valid=inliers), **cam)
+            r, _, is_stereo, behind = jpose._residuals_jacobian(T, obs, *K)
+            inliers = obs.valid & (jpose._chi2(r, obs.sigma2, is_stereo) <= th) & ~behind
+        return T, inliers, jnp.sum(inliers)
+
+    mp.setattr(jreloc, "pnp_ransac", pnp_ransac)
+    mp.setattr(jreloc, "pose_optimize", pose_optimize)
 
 
 def _pose_close(T, T_ref, what=""):
@@ -231,7 +266,7 @@ def test_bootstrap_vocabulary_and_database_match_reference(reference_run, port_r
     assert int(out.db.has_row.sum()) == 3
     np.testing.assert_allclose(out.db.bow.numpy(), np.asarray(ref.db.bow), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(out.kf_nodes.numpy(), np.asarray(ref.kf_nodes))
-    assert out.vocab_swaps == 0 and out._vocab_thread is None
+    assert out._vocab_thread is None and out._next_vocab_refresh == out.VOCAB_REFRESH_AT
 
 
 def _carried(reference_run, **attrs):
@@ -267,7 +302,6 @@ def test_vocabulary_retrain_and_swap_match_reference(reference_run, pool_kfs):
         slam.n_keyframes = 12
         slam._maybe_refresh_vocab()
         assert slam._vocab_thread is None
-    assert tnew.vocab_swaps == 1 and tnew.vocab_train_seconds > 0
     got = to_numpy(tnew.vocab)
     for name in ("node_desc", "children", "node_word", "word_weight"):
         a, b = getattr(got, name), np.asarray(getattr(jnew.vocab, name))
@@ -291,7 +325,6 @@ def test_retrain_below_1000_descriptors_keeps_the_vocabulary(reference_run):
         slam.n_keyframes = 12
         slam._maybe_refresh_vocab()
         assert slam.vocab is old and slam._vocab_thread is None
-    assert tnew.vocab_swaps == 0
 
 
 def test_retrain_worker_is_handed_host_arrays_and_runs_no_tensor_op(reference_run, monkeypatch):
@@ -377,6 +410,13 @@ RELOC_CASES = [("relocalize", 0, True), ("relocalize", 8, True), ("relocalize", 
                ("relocalize_brute", 0, True), ("relocalize_brute", 5, False)]
 
 
+# Distance from ground truth of an accepted relocalization.  Frame 8 is held
+# by 53 of 73 BoW matches where ground truth itself explains 49: a few wrong
+# matches pass the chi2 test and pull the pose 0.100 m off (measured, with
+# the reference's draws); the tracker's next frame is back within 0.05 m.
+GT_BOUND_M = {0: 0.05, 8: 0.15}
+
+
 @pytest.mark.parametrize("rung,frame,recovers", RELOC_CASES)
 def test_relocalization_matches_reference(frames, reference_run, rung, frame, recovers,
                                           monkeypatch):
@@ -384,10 +424,15 @@ def test_relocalization_matches_reference(frames, reference_run, rung, frame, re
     ref = reference_run[0]
     cur = cur_frames[frame]
     key = jax.random.split(jax.random.PRNGKey(11))[1]
-    if rung == "relocalize":
-        r = jreloc.relocalize(ref.map, ref.db, ref.kf_nodes, ref.vocab, cur, JCFG, key)
-    else:
-        r = jreloc.relocalize_brute(ref.map, cur, JCFG, key)
+
+    def reference():
+        if rung == "relocalize":
+            return jreloc.relocalize(ref.map, ref.db, ref.kf_nodes, ref.vocab, cur, JCFG, key)
+        return jreloc.relocalize_brute(ref.map, cur, JCFG, key)
+
+    assert reference().success == recovers         # the reference as it is
+    _reference_solves_like_the_port(monkeypatch)
+    r = reference()
     _, tnew = _carried(reference_run)
     chain = _KeyChain(sub=key, rung="_try_" + rung)
     monkeypatch.setattr(tpnp, "sample_sets", chain.sample_sets)
@@ -403,7 +448,7 @@ def test_relocalization_matches_reference(frames, reference_run, rung, frame, re
     np.testing.assert_array_equal(o.bindings.numpy(), np.asarray(r.bindings))
     assert int((o.bindings >= 0).sum()) >= 50 and o.bindings.dtype == torch.int32
     _pose_close(o.T_cw.numpy(), r.T_cw)
-    assert np.linalg.norm(o.T_cw.numpy()[:3, 3] - gt[frame][:3, 3]) < 0.05
+    assert np.linalg.norm(o.T_cw.numpy()[:3, 3] - gt[frame][:3, 3]) < GT_BOUND_M[frame]
 
 
 def test_relocalization_declines_like_the_reference(frames, reference_run, monkeypatch):
@@ -421,6 +466,76 @@ def test_relocalization_declines_like_the_reference(frames, reference_run, monke
     assert not jreloc.relocalize_brute(ref.map, blank, JCFG, key).success
     assert treloc.relocalize_brute(tnew.map, tblank, TCFG, None) == treloc.RelocResult(
         False, None, None)
+
+
+# ---- the pose solve on outlier-heavy matches ----------------------------------------
+
+# BoW matches of a 1241x376 frame against one keyframe of a 24-frame map (105
+# pairs, about half of them wrong), the EPnP pose and its consensus set (60),
+# and the frame's ground truth: a case on which pose optimization over all
+# matches ended with 2 inliers on one device and 63 on another.
+_CASE = np.load(Path(__file__).with_name("test_torch_reloc_case.npz"))
+_CASE_CAM = tconfig.SystemConfig().camera
+_CASE_K = dict(fx=_CASE_CAM.fx, fy=_CASE_CAM.fy, cx=_CASE_CAM.cx, cy=_CASE_CAM.cy,
+               bf=_CASE_CAM.bf)
+
+
+def _case(dtype=torch.float32):
+    f = {k: torch.from_numpy(_CASE[k]) for k in _CASE.files}
+    obs = tpose.PoseObs(f["p_w"].to(dtype), f["uv"].to(dtype), f["u_right"].to(dtype),
+                        f["sigma2"].to(dtype), torch.ones(len(f["p_w"]), dtype=torch.bool))
+    return obs, f["consensus"], f["T_pnp"].to(dtype), f["T_gt"]
+
+
+def _perturbed(T, n=12, scale=1e-5):
+    g = torch.Generator().manual_seed(1)
+    return [tlie.exp_se3(scale * torch.randn(6, generator=g)).to(T.dtype) @ T for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_pose_optimize_over_all_matches_loses_the_consensus(dtype):
+    """Why ``refine_pose`` does not optimize over all matches as the reference
+    does: from an EPnP pose that 60 of the 105 matches support, the first
+    Huber round over all of them walks off (in float64 as in float32) and the
+    chi2 test keeps 2 matches.  Two points do not fix a pose, so every later
+    round solves a system that only its damping makes regular."""
+    obs, consensus, T_pnp, _ = _case(dtype)
+    valid = obs.valid[None]
+    args = tuple(_CASE_K.values())
+    at_start = tpose._classify(T_pnp[None], obs, valid, *args)
+    assert int(at_start.sum()) >= 55 and int(consensus.sum()) == 60
+    T = tpose._gn_iterations(T_pnp[None], obs._replace(valid=valid), valid,
+                             torch.ones_like(valid), True, *args)
+    kept = tpose._classify(T, obs, valid, *args)
+    assert int(kept.sum()) == 2
+    r, J, is_stereo, _ = tpose._residuals_jacobian(T, obs, *args)
+    Jk = J[0][kept[0]].reshape(-1, 6).double()
+    eig = torch.linalg.eigvalsh(Jk.T @ Jk)
+    assert eig[0] < 1e-9 * eig[-1]          # rank-deficient but for the 1e-5 damping
+
+
+def test_pose_optimize_over_all_matches_hangs_on_rounding():
+    """The same case from 12 starts 1e-5 apart: optimization over all matches
+    ends with 2-3 inliers from some and 60+ from others."""
+    obs, _, T_pnp, _ = _case()
+    counts = [int(tpose.pose_optimize(T, obs, **_CASE_K)[2]) for T in _perturbed(T_pnp)]
+    assert min(counts) <= 3 and max(counts) >= 60, counts
+
+
+def test_refine_pose_is_stable_on_outlier_heavy_matches():
+    """``refine_pose`` on that case: from the same 12 starts the same inliers
+    and the same pose to 1e-3, within 0.05 m of ground truth; float64 agrees."""
+    obs, consensus, T_pnp, T_gt = _case()
+    T0, inl0 = treloc.refine_pose(T_pnp, obs, consensus, **_CASE_K)
+    assert int(inl0.sum()) >= 60
+    assert float(torch.linalg.vector_norm(T0[:3, 3] - T_gt[:3, 3])) < 0.05
+    for T_start in _perturbed(T_pnp):
+        T, inl = treloc.refine_pose(T_start, obs, consensus, **_CASE_K)
+        assert torch.equal(inl, inl0)
+        assert float((T - T0).abs().max()) < 1e-3
+    obs64, _, T64, _ = _case(torch.float64)
+    T, inl = treloc.refine_pose(T64, obs64, consensus, **_CASE_K)
+    assert torch.equal(inl, inl0) and float((T - T0.double()).abs().max()) < 1e-3
 
 
 # ---- a kidnap ---------------------------------------------------------------------
@@ -441,6 +556,7 @@ def test_kidnap_recovers_on_the_same_rung(frames, reference_run, port_run, monke
     ref, out = _fork(reference_run[0]), _fork(port_run[0])
     chain = _KeyChain(out.generator)
     monkeypatch.setattr(tpnp, "sample_sets", chain.sample_sets)
+    _reference_solves_like_the_port(monkeypatch)
     ref_log, out_log = [], []
     _log_rungs(ref, ref_log)
     _log_rungs(out, out_log, chain)
@@ -483,7 +599,7 @@ def test_tracking_only_first_frame_relocalizes_against_a_given_map(frames, refer
     _log_rungs(tnew, log, chain)
     T = tnew._step(from_jax_numpy(_np_tree(cur_frames[8]))).numpy()
     assert log == [("_try_relocalize", True)]
-    assert np.linalg.norm(T[:3, 3] - gt[8][:3, 3]) < 0.05
+    assert np.linalg.norm(T[:3, 3] - gt[8][:3, 3]) < GT_BOUND_M[8]
     assert int(tnew.map.kf_valid.sum()) == 3 and tnew.n_keyframes == 0
     T = tnew._step(from_jax_numpy(_np_tree(cur_frames[9]))).numpy()
     assert not tnew._vo_mode and not tnew.lost
@@ -499,8 +615,6 @@ def test_kitti_kidnap_reference_run():
     (minutes; run with ``-m slow -s``): the 24 rendered KITTI-size frames,
     then ``chip_smoke.kidnap_drive``.  Its pose error at frame 8 is what
     ``chip_smoke.KIDNAP_BOUND_M`` was settled against."""
-    import chip_smoke
-
     jcfg, tcfg = jconfig.SystemConfig(), tconfig.SystemConfig()
     lefts, rights, gt, _ = tsyn.render_stereo_sequence(tcfg, n_frames=24, n_points=900, seed=0,
                                                        step=0.6)

@@ -8,7 +8,8 @@ poses within 5 mm / 1e-3 rad while on the map)."""
 import jax.numpy as jnp
 import numpy as np
 import torch
-from test_torch_reloc import RELOC, _configs, _KeyChain, _log_rungs, _np_tree, _pose_close
+from test_torch_reloc import (RELOC, _configs, _KeyChain, _log_rungs, _np_tree, _pose_close,
+                               _reference_solves_like_the_port)
 
 from opendlv_perception_vision_orbslam2_tpu.models import frontend as jfront
 from opendlv_perception_vision_orbslam2_tpu.models import slam as jslam
@@ -59,17 +60,37 @@ def test_tracking_only_vo_mode_engages():
     """Off the mapped region the tracker must fall into VO mode and keep
     producing finite poses instead of dying."""
     cfg = _tracking_only_config()
-    # 30 frames, not the reference test's 24: with its own front end the port
-    # inserts a third keyframe within the first 6 frames (the reference two),
-    # so its map reaches further and the map inliers fall below 10 at frame
-    # 25 instead of 17
+    # 30 frames, not the reference test's 24.  The keyframe rule asks for a
+    # keyframe when more than 70 close stereo points are untracked and fewer
+    # than 100 tracked; at frame 1 the port's own front end on the CPU counts
+    # 72 untracked (the reference's front end 69, and 63 at frame 5 where the
+    # port counts 73), so the port inserts keyframes at frames 1 and 5 where
+    # the reference inserts one at frame 3: three keyframes, not two, over the
+    # first 6 frames, a map that reaches further, and map inliers that fall
+    # below 10 at frame 25 instead of 17.  On the reference's front-end frames
+    # the port decides as the reference does (the test below).
     n = 30
     lefts, rights, _, _ = tsyn.render_stereo_sequence(cfg, n_frames=n, n_points=500, seed=5,
                                                       step=0.6)
     slam = tslam.StereoSlam(cfg, enable_loop_closing=False, device="cpu")
-    for i in range(6):
-        slam.process(lefts[i], rights[i], timestamp=i * 0.1)
-    slam.finish()
+    ref = jslam.StereoSlam(_configs(16384, th_depth=35.0)[0], enable_loop_closing=False)
+    untracked = {}
+    for name, s in (("port", slam), ("reference", ref)):
+        def noted(tracked, n_tracked_close, n_untracked_close, _name=name,
+                  _inner=s._need_new_keyframe):
+            need = _inner(tracked, n_tracked_close, n_untracked_close)
+            untracked.setdefault(_name, []).append((n_untracked_close, need))
+            return need
+        s._need_new_keyframe = noted
+        for i in range(6):
+            s.process(lefts[i], rights[i], timestamp=i * 0.1)
+        s.finish()
+        del s._need_new_keyframe
+    # the decision that differs: "> 70 untracked close points" at frame 1
+    assert untracked["port"][0][0] > 70 >= untracked["reference"][0][0]
+    assert [need for _, need in untracked["port"]] == [True, False, False, False, True]
+    assert [need for _, need in untracked["reference"]] == [False, False, True, False, False]
+    assert (slam.n_keyframes, ref.n_keyframes) == (3, 2)
     kfs_before = slam.n_keyframes
     slam.tracking_only = True
     engaged = False
@@ -99,6 +120,7 @@ def test_tracking_only_matches_reference_frame_by_frame(monkeypatch):
     out = tslam.StereoSlam(tcfg, device="cpu", **RELOC)
     chain = _KeyChain(out.generator)
     monkeypatch.setattr(tpnp, "sample_sets", chain.sample_sets)
+    _reference_solves_like_the_port(monkeypatch)
     ref_log, out_log = [], []
     _log_rungs(ref, ref_log)
     _log_rungs(out, out_log, chain)
