@@ -69,9 +69,34 @@ and the final line is not printed:
     12's map: a frame without a feature puts the tracker into VO mode,
     frames 12-17 must snap it back by relocalization with the map unchanged
     and a pose error at frame 17 < KIDNAP_BOUND_M.
+15. loop closing and global BA: ``StereoSlam(cfg)`` with its defaults (loop
+    closing and relocalization on) over bench.py's 260-frame KITTI-size loop
+    circuit (``LOOP_CIRCUIT``), async, a sync after each frame.  Gates: the
+    launch counters show 1 FAST + 2 gather launches a frame, fewer than 5 %
+    of the frames lost, >= 1 loop closed, the map grown past 64 keyframe
+    slots, every pose finite, retro-corrected ATE (align=True, as bench.py
+    measures it) < ``LOOP_ATE_BOUND_M``.  Prints frames/s and ms/frame
+    median, mean and worst over frames 36-259 (what the worst frame ran),
+    keyframes, points, lost frames, each closure (frame, keyframe slots and
+    ids, n_inliers, n_total), each capacity growth, the GBA's chunks (device
+    ms by CUDA events) and merge frame, device busy and idle share over 6
+    frames while GBA chunks run (torch.profiler; those frames are left out
+    of the ms/frame figures), peak device memory and the host syncs a frame
+    (``torch.cuda.set_sync_debug_mode``, by call site); then on the closing
+    verification's inputs, synced on both sides: ``loop_candidates``,
+    ``_geometric_loop_query``, ``harvest_detect`` (host), ``verify_and_apply``,
+    ``correct_loop``, ``optimize_pose_graph``, one
+    ``global_bundle_adjust_chunk``, and the card's run-to-run spread of the
+    last two (float ``index_add`` is atomic there);
+16. the loop stages on the card against the CPU on that closure, with the
+    card's RANSAC sets on both: ``compute_loop_transform`` (the same pairs,
+    verdict, n_inliers and n_total, ``T_rel`` within 1e-3), ``correct_loop``
+    (keyframe poses within 1e-3 m and 1e-3 rad) and one GBA chunk (cost
+    within 1e-3 relative, poses within 1e-3).
 
-Then one JSON line of kernel results (each kernel's per-frame numbers and
-its sites), the nvidia-smi line, and the last line
+Then one JSON line of kernel results (each kernel's per-frame numbers, its
+sites, and its launches on phase 15's path (``launches``) and on phases 5,
+9 and 12), the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports no jax.
 """
 
@@ -413,6 +438,34 @@ def far_point_check(slam, world, th_far):
         return 0, float("inf")
     d = np.linalg.norm(pts[far][:, None, :] - np.asarray(world.points)[None, :, :], axis=-1)
     return int(far.sum()), float(np.median(d.min(axis=1) / pts[far][:, 2]))
+
+
+# Phases 15-16: bench.py's loop circuit at KITTI size (bench_full_slam): 1.25
+# laps of a radius-35 m circle, 36 warm-up frames, the timed window over
+# frames 36-259, 15 frames/s timestamps.
+LOOP_CIRCUIT = dict(n_frames=260, n_points=3200, seed=1, radius=35.0, laps=1.25,
+                    r_off_range=(6.0, 30.0), y_range=(-2.5, 2.0), lateral_range=(-14.0, 14.0))
+LOOP_WARM = 36
+LOOP_FPS = 15.0
+LOOP_INITIAL_KF_SLOTS = 64      # SystemConfig().initial_keyframes: the map must grow past it
+# lost frames after initialization: fewer than 5 % (tests/test_long_horizon.py's bound)
+LOOP_LOST_SHARE = 0.05
+# Phase 15's ATE gate (retro-corrected, align=True, as bench.py measures it).
+# The reference package on the same 260 frames on the CPU
+# (tests/test_torch_loop_slam.py::test_kitti_loop_reference_run): 0.1788 m,
+# closing no loop there (an instrumented second run verified 65 nominations;
+# the best, at the revisit, found 19 of the 20 inliers a closure needs); on a
+# TPU it closed one loop at 0.141 m
+# (BENCH_r05.json).  The bound leaves the CPU run a 40 % margin.
+REFERENCE_LOOP_ATE_M = 0.1788
+LOOP_ATE_BOUND_M = 0.25
+
+
+def render_loop_circuit(cfg):
+    """``(lefts, rights, gt, world)`` of the loop circuit, numpy."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic
+
+    return synthetic.render_loop_sequence(cfg, **LOOP_CIRCUIT)
 
 
 # Phase 13's gate.  The reference package on the same frames (24 frames, 3
@@ -908,6 +961,420 @@ def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_lat, n_timed,
     return reloc_launches
 
 
+def _pose_gap(A, B, valid):
+    """``(max translation difference m, max rotation angle rad)`` between two
+    ``[K, 4, 4]`` pose sets over the ``valid`` slots (host numpy)."""
+    import numpy as np
+
+    A = _host(A)[valid].astype(np.float64)
+    B = _host(B)[valid].astype(np.float64)
+    if not len(A):
+        return 0.0, 0.0
+    dt = float(np.abs(A[:, :3, 3] - B[:, :3, 3]).max())
+    # ||R_a - R_b||_F = 2 sqrt(2) sin(angle / 2): exact 0 for equal matrices
+    chord = np.linalg.norm(A[:, :3, :3] - B[:, :3, :3], axis=(1, 2)) / (2.0 * np.sqrt(2.0))
+    return dt, float((2.0 * np.arcsin(np.clip(chord, 0.0, 1.0))).max())
+
+
+def synced_ms(fn, reps: int = 3):
+    """``(median ms, last result)`` of ``fn()`` with a sync on both sides."""
+    import numpy as np
+    import torch
+
+    ms, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return float(np.median(ms)), out
+
+
+# the loop slice's modules and driver methods, for the sync report
+LOOP_FILES = ("loop_closing.py", "global_ba.py", "gba.py", "pose_graph.py", "horn.py")
+LOOP_METHODS = ("_try_harvest_loop", "_dispatch_verify", "_service_gba")
+
+
+class _SyncCounter:
+    """Counts the host syncs ``torch.cuda.set_sync_debug_mode("warn")``
+    reports, by the call site in the port that made them, and apart those
+    made inside the loop slice's code (``LOOP_FILES``, ``LOOP_METHODS``)."""
+
+    def __init__(self):
+        self.sites = {}
+        self.loop_sites = {}      # syncs made inside the loop slice's code
+        self.n = 0
+
+    def __enter__(self):
+        import traceback
+        import warnings
+
+        import torch
+
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" not in str(message):
+                return
+            self.n += 1
+            site = loop_site = None
+            for fr in reversed(traceback.extract_stack()[:-1]):
+                if "opendlv_perception_vision_orbslam2_tpu_torch" not in fr.filename:
+                    continue
+                here = f"{Path(fr.filename).name}:{fr.lineno} {fr.name}"
+                site = site or here
+                if Path(fr.filename).name in LOOP_FILES or fr.name in LOOP_METHODS:
+                    loop_site = f"{site} <- {here}" if here != site else here
+                    break
+            site = site or "other"
+            self.sites[site] = self.sites.get(site, 0) + 1
+            if loop_site is not None:
+                self.loop_sites[loop_site] = self.loop_sites.get(loop_site, 0) + 1
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        return False
+
+
+def loop_phases(cfg, dev):
+    """Phases 15-16 (see the module's docstring) on the KITTI-size loop
+    circuit.  Returns phase 15's launch counts."""
+    import numpy as np
+    import torch
+
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import global_ba, loop_closing
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as slam_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim import gba as gba_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim import pose_graph
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import trajectory
+
+    t_phase = [time.perf_counter()]
+    lefts, rights, gt, _ = render_loop_circuit(cfg)
+    n = lefts.shape[0]
+    render_s = time.perf_counter() - t_phase[0]
+
+    # -- 15. the loop circuit -------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    slam = slam_mod.StereoSlam(cfg, device=dev)        # loop closing + relocalization on
+    frame = [0]
+    labels = {}                                        # frame -> what ran in it
+
+    def label(what):
+        labels.setdefault(frame[0], []).append(what)
+
+    def noting(obj, name, what, extra=None):
+        inner = getattr(obj, name)
+
+        def wrapped(*args, **kwargs):
+            if what is not None:
+                label(what)
+            out = inner(*args, **kwargs)
+            if extra is not None:
+                extra(args, out)
+            return out
+        setattr(obj, name, wrapped)
+        return inner
+
+    growth, verifies, matches, sets_drawn, gba_spans, merges = [], [], [], [], {}, []
+
+    def grew(args, _):
+        K, P = slam.map.kf_capacity, slam.map.pt_capacity
+        if (K, P) != growth_prev[0]:
+            growth.append((frame[0], growth_prev[0], (K, P)))
+            label(f"capacity growth to {K} kf / {P} points")
+        growth_prev[0] = (K, P)
+
+    growth_prev = [(slam.map.kf_capacity, slam.map.pt_capacity)]
+    noting(slam, "_maybe_resize", None, grew)
+    noting(slam, "_insert_only", "keyframe insert")
+    noting(slam, "_dispatch_mapping", "mapping stage")
+    noting(slam, "_register_keyframe", "registration + loop detection")
+    noting(slam, "_adopt_vocab", "vocabulary swap")
+    noting(slam, "_dispatch_verify", "Sim3 verification + masked correction",
+           lambda args, _: verifies.append((frame[0], args[0], slam_state)))
+    wrap_rungs(slam, lambda name, ok, sec: label(f"{RUNGS[name]} rung"))
+    slam_state = None
+
+    inner_dispatch = slam._dispatch_verify
+
+    def stash_dispatch(det):
+        nonlocal slam_state
+        slam_state = (slam.map, slam.db, slam.kf_nodes)     # the verification's inputs
+        return inner_dispatch(det)
+    slam._dispatch_verify = stash_dispatch
+
+    inner_clt, inner_sets = loop_closing.compute_loop_transform, loop_closing.sample_sets
+
+    def stash_clt(*args, **kwargs):
+        lm = inner_clt(*args, **kwargs)
+        matches.append(lm)
+        return lm
+
+    def stash_sets(pair_ok, generator, *a):
+        sets = inner_sets(pair_ok, generator, *a)
+        sets_drawn.append((pair_ok, sets))
+        return sets
+
+    class TimedGBA(global_ba.IncrementalGBA):
+        def step(self):
+            label("GBA chunk")
+            return super().step()
+
+        def merge(self, m):
+            label("GBA merge")
+            merges.append(frame[0])
+            return super().merge(m)
+
+    host_spans(TimedGBA, ("step",), gba_spans)
+    loop_closing.compute_loop_transform, loop_closing.sample_sets = stash_clt, stash_sets
+    inner_gba, slam_mod.IncrementalGBA = slam_mod.IncrementalGBA, TimedGBA
+    lat, lost, closures, profiled, prof = [], [], [], set(), None
+    try:
+        reset_launches()
+        with _SyncCounter() as syncs:
+            def next_frame():
+                i = frame[0] = len(lat)
+                loops = slam.loops_closed
+                t = time.perf_counter()
+                T = slam.process(lefts[i], rights[i], timestamp=i / LOOP_FPS)
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t)
+                if T is None:
+                    raise AssertionError(f"loop circuit: stereo initialization failed at frame {i}")
+                if slam.lost:
+                    lost.append(i)
+                if slam.loops_closed != loops:
+                    closures.append(i)
+                return T
+
+            n_sync_warm = 0
+            while len(lat) < n:
+                if len(lat) == LOOP_WARM:
+                    n_sync_warm = syncs.n
+                if (prof is None and slam.pending_gba is not None and len(lat) >= LOOP_WARM
+                        and len(lat) + 6 <= n):
+                    first = len(lat)
+                    prof = device_busy(next_frame, 6) + (first,)
+                    profiled.update(range(first, first + 6))
+                else:
+                    next_frame()
+            n_sync = syncs.n - n_sync_warm
+            launches = read_launches()
+            slam.finish()
+    finally:
+        loop_closing.compute_loop_transform, loop_closing.sample_sets = inner_clt, inner_sets
+        slam_mod.IncrementalGBA = inner_gba
+        unwrap_rungs(slam)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t_phase.append(time.perf_counter())
+
+    expected = {"fast_nms": 0, "fast_nms_pyramid": n, "gather_patches": n,
+                "gather_patches_multi": n}
+    if launches != expected:
+        raise AssertionError(f"loop circuit: kernel launches {launches}, expected {expected}")
+    est = slam.corrected_trajectory()
+    raw = [T.cpu().numpy() for T in slam.trajectory]
+    if len(est) != n or not all(np.isfinite(T).all() for T in est + raw):
+        raise AssertionError("loop circuit: a pose is missing or not finite")
+    ate = trajectory.ate_rmse(est, list(gt), align=True)
+    ate_raw = trajectory.ate_rmse(raw, list(gt), align=True)
+    timed = [i for i in range(LOOP_WARM, n) if i not in profiled]
+    tl = 1e3 * np.array([lat[i] for i in timed])
+    worst = timed[int(np.argmax(tl))]
+    m = slam.map
+    print(f"loop_kitti: {n} frames 1241x376 (bench.py's circuit: radius 35 m, 1.25 laps, "
+          f"rendered in {render_s:.1f} s), StereoSlam(cfg) defaults, async | frames "
+          f"{LOOP_WARM}-{n - 1} without the {len(profiled)} profiled: "
+          f"{1e3 / tl.mean():.2f} frames/s, ms/frame median {np.median(tl):.2f} mean "
+          f"{tl.mean():.2f} worst {tl.max():.2f} (frame {worst}: "
+          f"{'; '.join(labels.get(worst, ['tracking only']))}) | keyframes "
+          f"{slam.n_keyframes} (valid {int(m.kf_valid.sum())}) | map points "
+          f"{int(m.pt_valid.sum())} | lost {len(lost)} of {n} {lost} (bound < "
+          f"{LOOP_LOST_SHARE * n:g}) | "
+          f"loops {slam.loops_closed} | ATE corrected {ate:.4f} m, raw {ate_raw:.4f} m "
+          f"(align=True, bound {LOOP_ATE_BOUND_M} m; the reference package "
+          f"{REFERENCE_LOOP_ATE_M} m on the CPU, 0.141 m in BENCH_r05.json) | peak device "
+          f"memory {peak_gb:.3f} GB | launches/frame {per_frame(launches, n)}", flush=True)
+
+    # closures: the verification that closed each loop
+    closed = []
+    for i in closures:
+        # the verdict landed at frame i: the last verification dispatched before it
+        k = max(j for j, (f, _, _) in enumerate(verifies) if f <= i)
+        closed.append(k)
+        f_v, (cur, cur_id, cand, cand_id), _ = verifies[k]
+        lm = matches[k]
+        print(f"loop_closure: verdict at frame {i}, verification dispatched at frame {f_v}: "
+              f"current keyframe slot {cur} id {cur_id}, candidate slot {cand} id {cand_id} | "
+              f"n_inliers {int(lm.n_inliers)} n_total {int(lm.n_total)} | s_rel "
+              f"{float(lm.s_rel):.4f}", flush=True)
+    print(f"loop_verifications: {len(verifies)} dispatched at frames "
+          f"{[f for f, _, _ in verifies]}, {len(closures)} closed", flush=True)
+    for f, before, after in growth:
+        print(f"loop_capacity: frame {f}: {before[0]} kf / {before[1]} points -> {after[0]} kf / "
+              f"{after[1]} points", flush=True)
+    chunk_ms = [s.elapsed_time(e) for _, s, e in gba_spans.get("step", [])]
+    print(f"loop_gba: {len(chunk_ms)} chunks, device ms per chunk (CUDA events) "
+          + (f"median {np.median(chunk_ms):.2f} max {max(chunk_ms):.2f}" if chunk_ms else "none")
+          + f" | merged at frames {merges}", flush=True)
+    if prof is not None:
+        busy_ms, ops, first = prof
+        prof_ms = 1e3 * float(np.mean(lat[first:first + 6]))
+        print(f"loop_device: frames {first}-{first + 5} with GBA chunks running: device busy "
+              f"{busy_ms:.2f} ms/frame in {ops:.0f} device ops (torch.profiler) | idle share "
+              f"{1 - busy_ms / prof_ms:.3f} of {prof_ms:.2f} ms/frame (profiled)", flush=True)
+    top = sorted(syncs.sites.items(), key=lambda kv: -kv[1])
+    loop_sites = sorted(syncs.loop_sites.items(), key=lambda kv: -kv[1])
+    print(f"loop_syncs: {n_sync} host syncs over frames {LOOP_WARM}-{n - 1} "
+          f"({n_sync / (n - LOOP_WARM):.2f} a frame; torch.cuda.set_sync_debug_mode) | top "
+          "sites: " + "; ".join(f"{k} x{v}" for k, v in top[:8])
+          + " | in the loop-closing and GBA code: "
+          + ("; ".join(f"{k} x{v}" for k, v in loop_sites) or "none"), flush=True)
+    if slam.loops_closed < 1:
+        raise AssertionError("loop circuit: no loop closed")
+    if not growth or growth[-1][2][0] <= LOOP_INITIAL_KF_SLOTS:
+        raise AssertionError(f"loop circuit: the map never grew past {LOOP_INITIAL_KF_SLOTS} "
+                             f"keyframe slots {growth}")
+    if not len(lost) < LOOP_LOST_SHARE * n:
+        raise AssertionError(f"loop circuit: frames {lost} lost of {n}")
+    if not ate < LOOP_ATE_BOUND_M:
+        raise AssertionError(f"loop circuit: ATE {ate:.4f} m >= {LOOP_ATE_BOUND_M} m")
+
+    # per-layer ms on the closing verification's inputs, synced both sides
+    k = closed[0]
+    _, (cur, cur_id, cand, cand_id), (m0, db0, nodes0) = verifies[k]
+    pair_ok_card, sets_card = sets_drawn[k]
+    layers = {}
+    layers["loop_candidates"], _ = synced_ms(lambda: loop_closing.loop_candidates(m0, db0, cur))
+    layers["_geometric_loop_query"], _ = synced_ms(
+        lambda: loop_closing._geometric_loop_query(m0, cur, cfg))
+    closer = loop_closing.LoopCloser(cfg, dev)
+    closer._geo_tick = 2                              # the next dispatch runs the vote
+    pend = closer.dispatch(m0, db0, nodes0, cur, cur_id)
+    pend["fetch"].result()
+    t = time.perf_counter()
+    closer.harvest_detect(pend)
+    layers["harvest_detect (host)"] = 1e3 * (time.perf_counter() - t)
+    fixed_sets = lambda pair_ok, generator, *a: sets_card.to(pair_ok.device)  # noqa: E731
+    loop_closing.sample_sets = fixed_sets
+    try:
+        layers["verify_and_apply"], (m_v, valid, _, _) = synced_ms(
+            lambda: loop_closing.verify_and_apply(m0, nodes0, cur, cand, cur_id, cand_id, None,
+                                                  cfg, True))
+        lm = loop_closing.compute_loop_transform(m0, nodes0, cur, cand, None, cfg, True)
+    finally:
+        loop_closing.sample_sets = inner_sets
+    if not bool(valid):
+        raise AssertionError("loop circuit: the closing verification declines when repeated")
+    layers["correct_loop"], m_c = synced_ms(
+        lambda: loop_closing.correct_loop(m0, cur, cand, lm.T_rel, lm.s_rel))
+    edges = loop_closing.build_essential_edges(m0, cur, cand, lm.T_rel, lm.s_rel)
+    pg = pose_graph.PoseGraphProblem(
+        T=m0.kf_T_cw, v_valid=m0.kf_valid,
+        v_fixed=torch.arange(m0.kf_capacity, device=dev) == cand, e_i=edges.e_i,
+        e_j=edges.e_j, e_T_ij=edges.e_T, e_weight=edges.e_w, e_valid=edges.e_valid,
+        e_s_ij=edges.e_s)
+    layers["optimize_pose_graph"], pg_out = synced_ms(
+        lambda: pose_graph.optimize_pose_graph(pg, n_iters=15))
+    gba = global_ba.IncrementalGBA(m_c, cfg)
+    layers["global_bundle_adjust_chunk"], carry = synced_ms(
+        lambda: gba_mod.global_bundle_adjust_chunk(
+            gba.prob, gba.carry, fx=cfg.camera.fx, fy=cfg.camera.fy, cx=cfg.camera.cx,
+            cy=cfg.camera.cy, bf=cfg.camera.bf, n_outer=1, cg_iters=gba.cg_iters))
+    # run-to-run spread on the card (index_add of floats is atomic there)
+    pg_again = pose_graph.optimize_pose_graph(pg, n_iters=15)
+    carry_again = gba_mod.global_bundle_adjust_chunk(
+        gba.prob, gba.carry, fx=cfg.camera.fx, fy=cfg.camera.fy, cx=cfg.camera.cx,
+        cy=cfg.camera.cy, bf=cfg.camera.bf, n_outer=1, cg_iters=gba.cg_iters)
+    spread_pg = float((pg_again[0] - pg_out[0]).abs().max())
+    spread_gba = float((carry_again[0] - carry[0]).abs().max())
+    print(f"loop_layers: on the closing verification's inputs (K {m0.kf_capacity}, P "
+          f"{m0.pt_capacity}, {int(m0.kf_valid.sum())} keyframes), median of 3, sync both sides: "
+          + " | ".join(f"{name} {ms:.2f} ms" for name, ms in layers.items())
+          + f" | run-to-run spread on the card: pose graph {spread_pg:.3g}, GBA chunk poses "
+          f"{spread_gba:.3g}", flush=True)
+    t_phase.append(time.perf_counter())
+
+    # -- 16. the loop stages on the card against the CPU -----------------------
+    m0c, nodes0c, sets_cpu = to_cpu(m0), nodes0.cpu(), sets_card.cpu()
+    pair_oks = []
+
+    def recorded_sets(pair_ok, generator, *a):
+        pair_oks.append(pair_ok.cpu())
+        return sets_cpu.to(pair_ok.device)
+
+    loop_closing.sample_sets = recorded_sets
+    try:
+        lm_card = loop_closing.compute_loop_transform(m0, nodes0, cur, cand, None, cfg, True)
+        lm_cpu = loop_closing.compute_loop_transform(m0c, nodes0c, cur, cand, None, cfg, True)
+    finally:
+        loop_closing.sample_sets = inner_sets
+    same_pairs = torch.equal(pair_oks[0], pair_oks[1]) and torch.equal(pair_oks[0],
+                                                                       pair_ok_card.cpu())
+    counts = [(bool(x.ok), int(x.n_inliers), int(x.n_total)) for x in (lm_card, lm_cpu)]
+    d_rel = float((lm_card.T_rel.cpu() - lm_cpu.T_rel).abs().max())
+    c_card = loop_closing.correct_loop(m0, cur, cand, lm_card.T_rel, lm_card.s_rel)
+    c_cpu = loop_closing.correct_loop(m0c, cur, cand, lm_card.T_rel.cpu(), lm_card.s_rel.cpu())
+    valid_kf = m0c.kf_valid.numpy()
+    dt_c, dr_c = _pose_gap(c_card.kf_T_cw, c_cpu.kf_T_cw, valid_kf)
+    g_card = global_ba.IncrementalGBA(c_card, cfg)
+    g_cpu = global_ba.IncrementalGBA(to_cpu(c_card), cfg)
+    g_card.step()
+    g_cpu.step()
+    cost_card, cost_cpu = float(g_card.carry[3]), float(g_cpu.carry[3])
+    dt_g, dr_g = _pose_gap(g_card.carry[0], g_cpu.carry[0], valid_kf)
+    # where card and CPU part: the same chunk stopped after 5-40 CG steps,
+    # in float32 and in float64 on both devices
+    cam = cfg.camera
+    kw = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf)
+
+    def chunk(prob, cg):
+        return gba_mod.global_bundle_adjust_chunk(prob, gba_mod.gba_init_carry(prob), **kw,
+                                                  cg_iters=cg)[0]
+
+    f64 = lambda p: type(p)(*(x.double() if x.is_floating_point() else x for x in p))  # noqa: E731
+    steps = []
+    for cg in (5, 10, 20, 40):
+        t = {(d, b): chunk(f64(p) if b == 64 else p, cg)
+             for d, p in (("card", g_card.prob), ("CPU", g_cpu.prob)) for b in (32, 64)}
+        steps.append((cg, _pose_gap(t["card", 32], t["CPU", 32], valid_kf)[0],
+                      _pose_gap(t["card", 32], t["card", 64], valid_kf)[0],
+                      _pose_gap(t["CPU", 32], t["CPU", 64], valid_kf)[0],
+                      _pose_gap(t["card", 64], t["CPU", 64], valid_kf)[0]))
+    print(f"loop_card_vs_cpu: closing keyframe slot {cur} vs candidate slot {cand}, the card's "
+          f"RANSAC sets on both | compute_loop_transform: pairs "
+          f"{'identical' if same_pairs else 'DIFFER'} ({int(pair_oks[0].sum())}), (ok, "
+          f"n_inliers, n_total) card {counts[0]} CPU {counts[1]}, T_rel max diff {d_rel:.3g} "
+          f"(bound 1e-3) | correct_loop: keyframe poses {dt_c:.3g} m, {dr_c:.3g} rad (bounds "
+          f"1e-3) | one GBA chunk: cost {cost_card:.6g} vs {cost_cpu:.6g} (relative "
+          f"{abs(cost_card - cost_cpu) / abs(cost_cpu):.3g}, bound 1e-3), poses {dt_g:.3g} m, "
+          f"{dr_g:.3g} rad (bounds 1e-3)", flush=True)
+    print("loop_gba_precision: one chunk after 5/10/20/40 CG steps, max keyframe translation "
+          "gap m | card-CPU float32, card float32-float64, CPU float32-float64, card-CPU "
+          "float64: " + " | ".join(f"{cg}: {a:.3g}, {b:.3g}, {c:.3g}, {d:.3g}"
+                                   for cg, a, b, c, d in steps), flush=True)
+    if not same_pairs or counts[0] != counts[1] or not d_rel < 1e-3:
+        raise AssertionError("loop card vs CPU: compute_loop_transform differs")
+    if not (dt_c < 1e-3 and dr_c < 1e-3):
+        raise AssertionError("loop card vs CPU: correct_loop differs")
+    if not (abs(cost_card - cost_cpu) < 1e-3 * abs(cost_cpu) and dt_g < 1e-3 and dr_g < 1e-3):
+        raise AssertionError("loop card vs CPU: the GBA chunk differs")
+    t_phase.append(time.perf_counter())
+    print("loop_phases_seconds: phase 15 drive / 15 layers / 16: "
+          + " / ".join(f"{b - a:.1f}" for a, b in zip(t_phase, t_phase[1:])), flush=True)
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1255,11 +1722,15 @@ def main() -> int:
     reloc_launches = reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_lat,
                                   n_timed, n_prof_slam)
 
+    # -- 15-16. loop closing and global BA on the loop circuit ---------------
+    loop_launches = loop_phases(cfg, dev)
+
     kernels = [
         dict(name=name, route="cuda",
              source=f"opendlv_perception_vision_orbslam2_tpu_torch/csrc/{name}.cu",
-             replaces=REPLACES[name], launches=kernel_launches(slam_launches, name),
+             replaces=REPLACES[name], launches=kernel_launches(loop_launches, name),
              launches_vo=kernel_launches(launches, name),
+             launches_slam=kernel_launches(slam_launches, name),
              launches_reloc=kernel_launches(reloc_launches, name), **results[name])
         for name in ("fast_nms", "gather_patches")
     ]

@@ -1,16 +1,19 @@
-"""PyTorch/CUDA port of the ORB-SLAM2-class stereo engine (first slice).
+"""PyTorch/CUDA port of the ORB-SLAM2-class stereo engine.
 
 The JAX package ``opendlv_perception_vision_orbslam2_tpu`` is the reference;
 this package mirrors its layout and module names so each counterpart is easy
 to find:
 
-  ops/       geometry + image/feature ops (SE3, pyramid, FAST, ORB, Hamming,
-             stereo, matching) and the two hand-written CUDA kernels'
-             wrappers (``fast_kernel``, ``gather_kernel``)
-  models/    frame containers, ORB extractor, stereo front end, VO tracker
-  optim/     EPnP RANSAC and pose-only Gauss-Newton
-  utils/     config (copied verbatim), numpy synthetic world, ATE,
-             JAX<->torch state conversion
+  ops/       geometry + image/feature ops (SE3/Sim3, Horn, pyramid, FAST,
+             ORB, Hamming, stereo, matching) and the two hand-written CUDA
+             kernels' wrappers (``fast_kernel``, ``gather_kernel``)
+  models/    frame containers, ORB extractor, stereo front end, VO tracker,
+             map, mapping stage, place recognition, relocalization, loop
+             closing, global BA, the SLAM driver
+  optim/     EPnP RANSAC, pose-only Gauss-Newton, grid local BA, global BA,
+             the essential-graph pose graph
+  utils/     config (copied verbatim), numpy synthetic world, ATE, host
+             fetches, JAX<->torch state conversion
   csrc/      CUDA C++ sources, built with nvcc at first use into ``_build/``
 
 Dispatch rule for every kernel wrapper: a CPU tensor takes the plain PyTorch

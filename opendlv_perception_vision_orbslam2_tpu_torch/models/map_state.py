@@ -161,6 +161,22 @@ def grow_map(m: MapState, new_kf_capacity: int, new_pt_capacity: int) -> MapStat
     )
 
 
+def add_loop_edge(m: MapState, cur_slot, cand_slot, T_rel, s_rel) -> MapState:
+    """Record an accepted loop edge (AddLoopEdge, reference:
+    src/orbkeyframe.cpp:458-470) in the first free slot; dropped when the
+    edge list is full (the oldest edges matter most and stay).  The slots
+    are 0-d tensors or host integers."""
+    slot = torch.argmin(m.loop_valid.to(torch.int32))
+    free = ~row(m.loop_valid, slot)
+
+    def put(x, v):
+        return set_row(x, slot, torch.where(free, as_like(v, x), row(x, slot)))
+
+    return m._replace(loop_i=put(m.loop_i, cur_slot), loop_j=put(m.loop_j, cand_slot),
+                      loop_T=put(m.loop_T, T_rel), loop_s=put(m.loop_s, s_rel),
+                      loop_valid=set_row(m.loop_valid, slot, True))
+
+
 # ---------------------------------------------------------------------------
 # Covisibility
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ Counterpart of the reference package's ``models/slam.py`` (Tracking::Track
 -> TrackLocalMap -> NeedNewKeyFrame -> CreateNewKeyFrame, and the Mapping
 thread's loop body, reference: src/tracking.cpp:262-339, 696-976,
 src/mapping.cpp:48-116), with place recognition (the online vocabulary, the
-keyframe database), the lost-frame recovery ladder and localization-only
-mode; without loop closing.
+keyframe database), the lost-frame recovery ladder, localization-only mode,
+and loop closing with the incremental post-loop global BA (the LoopClosing
+thread, src/loopclosing.cpp:49-83, 645-750).
 
 Device programs are plain functions on tensors: ``track_frame_with_map``
 per frame, ``insert_stage`` + ``mapping_stage`` per keyframe.  The host
@@ -35,12 +36,15 @@ from ..ops.indexing import (
 )
 from ..optim.pose_opt import PoseObs, pose_optimize, robust_pose_estimate
 from ..utils.config import SystemConfig
+from ..utils.host import HostFetch
 from .frame import FrameState, features_scale_sigma2
 from .frontend import process_stereo
 from . import vocabulary as voc
 from .fusion import run_fusion
+from .global_ba import IncrementalGBA
 from .kfdb import add_keyframe, empty_kfdb
 from .local_mapping import local_mapping_step
+from .loop_closing import LoopCloser, verify_and_apply
 from .map_state import (
     MapState, cull_keyframes, cull_points, empty_map, evict_oldest_if_full, grow_map,
     insert_keyframe, pad_rows, point_observation_counts, recompute_covisibility,
@@ -396,40 +400,11 @@ def rebase_pose(T_cur, T_kf_pre, T_kf_post):
     return torch.where(ok, T, T_cur)
 
 
-class _HostFetch:
-    """A device->host copy of a few small tensors that completes in stream
-    order: pinned buffers filled ``non_blocking``, a CUDA event recorded
-    behind them.  ``done()`` polls the event, ``result()`` waits on it (the
-    counterpart of the reference's worker-thread ``bg_fetch``).  On the CPU
-    the copy is immediate."""
-
-    def __init__(self, *tensors):
-        self._event = None
-        if tensors[0].is_cuda:
-            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
-            for h, t in zip(self._host, tensors):
-                h.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = [t.detach().clone() for t in tensors]
-
-    def done(self) -> bool:
-        return self._event is None or self._event.query()
-
-    def result(self):
-        if self._event is not None:
-            self._event.synchronize()
-        out = [h.numpy() for h in self._host]
-        return out[0] if len(out) == 1 else out
-
-
 class StereoSlam:
-    """Host scheduler for stereo SLAM without loop closing: the per-frame
-    tracking program, the keyframe insert, the asynchronous mapping stage,
-    place recognition and the lost-frame recovery ladder (reference:
-    src/selflocalization.cpp:330-377 wiring, here without the loop-closing
-    thread).
+    """Host scheduler for stereo SLAM: the per-frame tracking program, the
+    keyframe insert, the asynchronous mapping stage, place recognition, the
+    lost-frame recovery ladder and loop closing (reference:
+    src/selflocalization.cpp:330-377 wiring).
 
     With ``enable_relocalization`` every adopted keyframe gets a BoW row in
     the keyframe database and a node table; the vocabulary is ``vocab`` or is
@@ -442,13 +417,23 @@ class StereoSlam:
     keyframes and no mapping stages, and with fewer than 10 map inliers the
     motion-model estimate carries the pose (``_vo_mode``) while
     relocalization is tried every frame; a success snaps back onto the map.
-    ``enable_loop_closing=True`` raises ``NotImplementedError`` until its
-    slice of the port lands (ROADMAP.md queue 1 item 6).
+
+    With ``enable_loop_closing`` every registered keyframe dispatches loop
+    detection; a nominated candidate is verified and its correction adopted
+    without waiting for the verdict (``verify_and_apply``), and a verified
+    closure schedules the incremental global BA, one LM iteration a frame.
+    No GBA steps or merges while a verification is in flight: a valid
+    verdict replaces an older GBA with one from the corrected map, a
+    declined one lets it resume (ORB-SLAM2 aborts GBA when a correction
+    starts; the reference package lets an older GBA merge over it).  A
+    finished GBA also waits for an in-flight mapping stage, whose adoption
+    would overwrite the merge.
 
     Per-frame RANSAC draws come from a generator re-seeded with the constant
     ``seed`` before each frame, as the reference package draws with a fresh
     ``PRNGKey(0)``; the recovery rungs share a generator seeded once with 11
-    that advances, as the reference package splits ``PRNGKey(11)``."""
+    that advances, as the reference package splits ``PRNGKey(11)``; the
+    loop closer's Sim3 sets likewise from a generator seeded 7."""
 
     # max keyframes inserted-but-not-yet-mapped while a stage is in flight
     # (reference: insert while fewer than 3 wait, src/tracking.cpp:884-893)
@@ -468,10 +453,6 @@ class StereoSlam:
     def __init__(self, config: SystemConfig, vocab=None, enable_loop_closing: bool = True,
                  enable_relocalization: bool = True, tracking_only: bool = False,
                  device="cuda"):
-        if enable_loop_closing:
-            raise NotImplementedError(
-                "loop closing is not ported yet (ROADMAP.md queue 1 item 6); "
-                "pass enable_loop_closing=False")
         self.tracking_only = tracking_only
         self._vo_mode = False
         self.config = config
@@ -502,6 +483,7 @@ class StereoSlam:
         self._pipeline_healthy = False
         self._lost_streak = 0
         self._motion_prior = None
+        self.loops_closed = 0
         self.reset()
 
     # ---- state --------------------------------------------------------------
@@ -540,6 +522,11 @@ class StereoSlam:
         self.db = None
         self.kf_nodes = None
         self._kf_valid_host = None
+        self.loop_closer = None
+        self.pending_gba = None        # in-flight incremental post-loop GBA
+        self._loop_pending: list = []  # FIFO of in-flight loop-detection fetches
+        self._verify_pending = None    # in-flight Sim3 verification verdict
+        self._verify_todo = None       # accepted candidate awaiting dispatch
 
     @property
     def mapping_busy(self) -> bool:
@@ -637,8 +624,8 @@ class StereoSlam:
         sel = torch.from_numpy(np.sort(sel).astype(np.int64))
         if self.device.type == "cuda":
             sel = sel.pin_memory().to(self.device, non_blocking=True)
-        fetch = _HostFetch(self.map.kf_desc.index_select(0, sel),
-                           self.map.kf_feat_valid.index_select(0, sel))
+        fetch = HostFetch(self.map.kf_desc.index_select(0, sel),
+                          self.map.kf_feat_valid.index_select(0, sel))
 
         def work():
             descs, feat_ok = fetch.result()     # host arrays, once the copy landed
@@ -661,16 +648,20 @@ class StereoSlam:
         self.kf_nodes = torch.where(live[:, None], nodes, -1)
 
     def _register_keyframe(self, slot: int, kf_id: int):
-        """BoW row + node table for a new keyframe, at adoption time, after
-        the mapping stage landed: the reference's LoopClosing thread adds a
-        keyframe to the database only after Mapping processed it (reference:
-        src/mapping.cpp:90, src/loopclosing.cpp:216)."""
+        """BoW row + node table + loop detection for a new keyframe, at
+        adoption time, after the mapping stage landed: the reference's
+        LoopClosing thread adds a keyframe to the database only after Mapping
+        processed it (reference: src/mapping.cpp:90, src/loopclosing.cpp:216).
+        Detection is dispatched without waiting; :meth:`_try_harvest_loop`
+        consumes it once its fetch has landed."""
         if self.vocab is None:
             return
         if self.db is None:
             self.db = empty_kfdb(self.map.kf_capacity, self.vocab.n_words, self.device)
             self.kf_nodes = torch.full((self.map.kf_capacity, self.config.orb.max_keypoints),
                                        -1, dtype=torch.int32, device=self.device)
+            self.loop_closer = LoopCloser(self.config, self.device)
+            self.loop_closer.defer_gba = True
         self._maybe_refresh_vocab()
         words, nodes = voc.transform(self.vocab, self.map.kf_desc[slot],
                                      self.map.kf_feat_valid[slot])
@@ -678,18 +669,88 @@ class StereoSlam:
         self.kf_nodes = set_row(self.kf_nodes, slot, nodes)
         # drop rows of culled keyframes
         self.db = self.db._replace(has_row=self.db.has_row & self.map.kf_valid)
+        if self.enable_loop_closing:
+            pend = self.loop_closer.dispatch(self.map, self.db, self.kf_nodes, slot, kf_id)
+            if pend is not None:
+                self._loop_pending.append(pend)
 
-    # ---- features of a later slice: the reference's early returns ----------
+    # ---- loop closing -----------------------------------------------------------
 
     def _try_harvest_loop(self, force: bool = False):
-        """The staged loop-closing pipeline: returns at once without a loop
-        closer."""
-        return
+        """Drive the staged loop-closing pipeline without blocking (unless
+        ``force``), the LoopClosing thread's three phases
+        (src/loopclosing.cpp:49-83):
+
+        1. consume a landed verification verdict: count the closure, reset
+           detection and replace any older GBA with one from the corrected
+           map (mbStopGBA, src/loopclosing.cpp:409-420);
+        2. consume landed detection fetches (host consistency logic);
+        3. dispatch a nominated candidate's verification when no mapping
+           stage is in flight (its adoption would overwrite the correction)
+           and no other verification is."""
+        if self.loop_closer is None:
+            return
+        vp = self._verify_pending
+        if vp is not None and (force or vp["fetch"].done()):
+            self._verify_pending = None
+            if bool(vp["fetch"].result()):
+                self.loops_closed += 1
+                lc = self.loop_closer
+                lc.last_loop_kf_id = vp["kf_id"]
+                lc.prev_groups, lc.prev_counts = [], []
+                self._verify_todo = None
+                # queued detections predate the correction, and the
+                # 10-keyframe cooldown skips them anyway
+                self._loop_pending.clear()
+                self.pending_gba = IncrementalGBA(self.map, self.config)
+        while self._loop_pending:
+            pend = self._loop_pending[0]
+            if not force and not pend["ready"]():
+                break
+            self._loop_pending.pop(0)
+            det = self.loop_closer.harvest_detect(pend)
+            if det is not None and det[1] - self.loop_closer.last_loop_kf_id >= 10:
+                self._verify_todo = det        # the latest nomination wins
+            if not force:
+                break
+        if (self._verify_todo is not None and self._kf_pending is None
+                and self._verify_pending is None):
+            det, self._verify_todo = self._verify_todo, None
+            self._dispatch_verify(det)
+            if force:
+                self._try_harvest_loop(force=True)
+
+    def _dispatch_verify(self, det):
+        """Launch ``verify_and_apply`` for a nominated candidate and adopt its
+        masked output at once: map, rebased pose and velocity are device
+        values selected by the verdict, which is read later."""
+        kf_slot, kf_id, cand_slot, cand_id = det
+        lc = self.loop_closer
+        m2, valid, T_pre, T_post = verify_and_apply(self.map, self.kf_nodes, kf_slot, cand_slot,
+                                                    kf_id, cand_id, lc.generator, self.config,
+                                                    lc.fix_scale)
+        self.map = m2
+        # ride the correction: keep the tracked cur<-KF relative pose
+        T_reb = lie.orthonormalize_T(rebase_pose(self.T_cw, T_pre, T_post))
+        self.T_cw = torch.where(valid, T_reb, self.T_cw)
+        self.velocity = torch.where(valid, self._eye(), self.velocity)
+        if self.last_frame is not None:
+            self.last_frame = self.last_frame._replace(T_cw=self.T_cw)
+        self._verify_pending = {"kf_id": kf_id, "fetch": HostFetch(valid)}
 
     def _service_gba(self):
-        """One incremental global-BA chunk: returns at once with none in
-        flight."""
-        return
+        """One bounded GBA chunk per frame and the merge once it finishes
+        (the between-frames slice of the reference's detached GBA thread).
+        Paused while a verification is in flight; a finished solve waits for
+        an in-flight mapping stage before it merges."""
+        gba = self.pending_gba
+        if gba is None or self._verify_pending is not None:
+            return
+        if gba.iters_left > 0:
+            gba.step()
+        if gba.iters_left <= 0 and self._kf_pending is None:
+            self.map = gba.merge(self.map)
+            self.pending_gba = None
 
     # ---- the recovery rungs ----------------------------------------------------
 
@@ -771,7 +832,7 @@ class StereoSlam:
             "T_kf_pre": row(self.map.kf_T_cw, slot),
             # interim point identities for adoption_fixup
             "pt_id_pre": self.map.pt_first_kf_id,
-            "fetch": _HostFetch(aux, slot.reshape(()), m_new.kf_valid),
+            "fetch": HostFetch(aux, slot.reshape(()), m_new.kf_valid),
         }
         P = self.map.pt_capacity
         self._pending_vis = torch.zeros((P,), dtype=torch.int32, device=self.device)
@@ -821,6 +882,13 @@ class StereoSlam:
         self._maybe_resize(extra_kf=len(self._kf_queue))
         self._register_keyframe(self.last_kf_slot, pend["kf_id"])
         self._kf_valid_host = None
+        # the Sim3 verification's slot: the pipeline is idle here (stage
+        # adopted, next not dispatched), the one idle point guaranteed at a
+        # high keyframe cadence
+        if (self._verify_todo is not None and self._verify_pending is None
+                and self.loop_closer is not None):
+            det, self._verify_todo = self._verify_todo, None
+            self._dispatch_verify(det)
         # replay queued keyframes onto the settled map, then start the next
         # stage; local BA only when the backlog is clear
         if self._kf_queue:
@@ -849,6 +917,9 @@ class StereoSlam:
                 self.db = self.db._replace(bow=pad_rows(self.db.bow, grow_k),
                                            has_row=pad_rows(self.db.has_row, grow_k))
                 self.kf_nodes = pad_rows(self.kf_nodes, grow_k, -1)
+            # an in-flight GBA snapshot has the old shapes: drop it (the
+            # reference aborts GBA on map topology changes too)
+            self.pending_gba = None
         elif n_kf >= K - 5 and K >= cfg.max_keyframes:
             for _ in range(3):
                 self.map = evict_oldest_if_full(self.map, min_free=5)
@@ -861,13 +932,18 @@ class StereoSlam:
         return self.map.kf_obs_point[self.last_kf_slot]
 
     def finish(self):
-        """Settle in-flight work: the deferred decision and the pending
-        mapping stage.  Call before reading the final map."""
+        """Settle in-flight work: the deferred decision, the pending mapping
+        stage, the loop pipeline and any incremental GBA (Shutdown joining
+        the threads, reference: src/selflocalization.cpp:560-570).  Call
+        before reading the final map."""
         if self._decision_pending is not None:
             fetch, T_before, binds, frame = self._decision_pending
             self._decision_pending = None
             self._handle_decision(fetch.result(), T_before, binds, frame)
         self._try_adopt_mapping(force=True)
+        self._try_harvest_loop(force=True)
+        while self.pending_gba is not None:
+            self._service_gba()
 
     # ---- per frame ------------------------------------------------------------
 
@@ -984,13 +1060,13 @@ class StereoSlam:
         )
         self._pipeline_healthy = healthy
         if healthy:
-            self._decision_pending = (_HostFetch(stats_dev), T_before, bindings_before,
+            self._decision_pending = (HostFetch(stats_dev), T_before, bindings_before,
                                       frame_before)
             if pend is not None:
                 self._handle_decision(pend[0].result(), pend[1], pend[2], pend[3])
         else:
             self._decision_pending = None
-            self._handle_decision(_HostFetch(stats_dev).result(), T_before, bindings_before,
+            self._handle_decision(HostFetch(stats_dev).result(), T_before, bindings_before,
                                   None)
         self._service_gba()
         return self.T_cw

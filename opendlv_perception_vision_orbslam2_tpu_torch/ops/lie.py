@@ -1,11 +1,12 @@
 """SE(3) operations and the pinhole camera on batched ``[..., 4, 4]`` tensors.
 
-Counterpart of the reference package's ``ops/lie.py``: the SE3 subset, pose
-re-orthonormalization and the closed-form DLT triangulation (Sim3 comes with
-the loop-closing slice).
+Counterpart of the reference package's ``ops/lie.py``: SE3 and its log map,
+the Sim3 operations loop closing needs (carried as ``(R, t, s)`` triples),
+pose re-orthonormalization and the closed-form DLT triangulation.
 
 Conventions:
 - SE3 tangent ``xi = [rho(3), phi(3)]`` (translation part first, like g2o).
+- Sim3 tangent ``zeta = [rho(3), phi(3), sigma(1)]`` with scale ``s = exp(sigma)``.
 - ``T_cw`` maps world points to camera points: ``x_c = R x_w + t``.
 """
 
@@ -48,6 +49,31 @@ def exp_so3(phi):
     return _eye3_like(K) + a[..., None, None] * K + b[..., None, None] * (K @ K)
 
 
+def log_so3(R):
+    """Inverse Rodrigues: ``[..., 3, 3]`` -> ``[..., 3]`` axis-angle.  theta
+    comes from atan2(|w|, cos) with an epsilon-padded norm, so forward-mode
+    Jacobians at the identity are finite; near theta = pi the axis comes
+    from the symmetric part."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    w = 0.5 * torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                           R[..., 0, 2] - R[..., 2, 0],
+                           R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin_theta = torch.sqrt(torch.sum(w * w, dim=-1) + _EPS * _EPS)
+    theta = torch.atan2(sin_theta, cos_theta)
+    w_gen = w * (theta / sin_theta)[..., None]
+    near_pi = theta > 3.0
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis_sq = torch.clamp((diag - cos_theta[..., None]) / (1.0 - cos_theta[..., None] + _EPS),
+                          0.0, 1.0)
+    axis = torch.sqrt(axis_sq)
+    sign_xy = torch.sign(R[..., 0, 1] + R[..., 1, 0] + _EPS)
+    sign_xz = torch.sign(R[..., 0, 2] + R[..., 2, 0] + _EPS)
+    sx = torch.where(w[..., 0] < 0, -1.0, 1.0)
+    axis = axis * torch.stack([sx, sx * sign_xy, sx * sign_xz], dim=-1)
+    return torch.where(near_pi[..., None], axis * theta[..., None], w_gen)
+
+
 def _so3_left_jacobian(phi):
     """Left Jacobian J of SO(3): the exp_se3 translation column uses V = J."""
     theta2 = torch.sum(phi * phi, dim=-1)
@@ -68,6 +94,14 @@ def exp_se3(xi):
     V = _so3_left_jacobian(phi)
     t = (V @ rho[..., None])[..., 0]
     return make_T(R, t)
+
+
+def log_se3(T):
+    """``[..., 4, 4]`` -> ``[..., 6]`` (rho, phi)."""
+    phi = log_so3(T[..., :3, :3])
+    V = _so3_left_jacobian(phi)
+    rho, _ = torch.linalg.solve_ex(V, T[..., :3, 3:])
+    return torch.cat([rho[..., 0], phi], dim=-1)
 
 
 def make_T(R, t):
@@ -95,6 +129,55 @@ def transform_points(T, pts):
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+# ---------------------------------------------------------------------------
+# Sim(3), carried as (R [..., 3, 3], t [..., 3], s [...]) triples (loop
+# closing: src/sim3solver.cpp:240-351, the essential graph's g2o::Sim3
+# vertices, src/orboptimizer.cpp:799-1061)
+# ---------------------------------------------------------------------------
+
+
+def exp_sim3(zeta):
+    """``[..., 7]`` (rho, phi, sigma) -> ``(R, t, s)`` with the series-safe W
+    matrix of the Sim(3) exponential (Strasdat's thesis)."""
+    rho, phi, sig = zeta[..., :3], zeta[..., 3:6], zeta[..., 6]
+    s = torch.exp(sig)
+    R = exp_so3(phi)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS)
+    K = hat(phi)
+    one = torch.ones_like(sig)
+    small_sig = torch.abs(sig) < 1e-6
+    A = torch.where(small_sig, 1.0 + sig / 2.0, (s - 1.0) / torch.where(small_sig, one, sig))
+    st, ct = torch.sin(theta), torch.cos(theta)
+    denom = sig * sig + theta2
+    small_d = denom < 1e-10
+    safe_d = torch.where(small_d, one, denom)
+    B = torch.where(small_d, 0.5 * one,
+                    (s * st * sig + (1.0 - s * ct) * theta) / (theta * safe_d))
+    c_num = A - (s * ct - 1.0) * sig / safe_d - s * st * theta / safe_d
+    C = torch.where(small_d, one / 6.0, c_num / torch.where(theta2 < 1e-10, one, theta2))
+    W = (A[..., None, None] * _eye3_like(K) + B[..., None, None] * K
+         + C[..., None, None] * (K @ K))
+    return R, (W @ rho[..., None])[..., 0], s
+
+
+def sim3_inverse(R, t, s):
+    """(s R x + t)^-1 as ``(R', t', s')`` with s' = 1/s."""
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * (Rt @ t[..., None])[..., 0], s_inv
+
+
+def sim3_compose(Ra, ta, sa, Rb, tb, sb):
+    """(a o b)(x) = sa Ra (sb Rb x + tb) + ta."""
+    return Ra @ Rb, sa[..., None] * (Ra @ tb[..., None])[..., 0] + ta, sa * sb
+
+
+def sim3_apply(R, t, s, pts):
+    """Apply a Sim3 to points ``[..., N, 3]``."""
+    return s[..., None, None] * (pts @ R.transpose(-1, -2)) + t[..., None, :]
 
 
 def project(pts_cam, fx, fy, cx, cy):

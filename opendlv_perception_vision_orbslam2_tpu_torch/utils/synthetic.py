@@ -136,3 +136,62 @@ def render_stereo_sequence(config: SystemConfig, n_frames: int = 30,
     lefts = np.stack([view(T) for T in poses])
     rights = np.stack([view(T_rl @ T) for T in poses])
     return lefts, rights, poses, world
+
+
+def circular_trajectory(n_frames: int, radius: float = 15.0, laps: float = 1.0):
+    """Ground-truth poses T_cw [N, 4, 4] driving ``laps`` closed circles with
+    the heading tangent (the loop-closure fixture: the camera re-enters its
+    start region once per lap).  The circle's center is (radius, 0, 0): the
+    drive starts at the origin facing +z, turning right."""
+    poses = []
+    for i in range(n_frames):
+        th = 2.0 * np.pi * laps * i / n_frames
+        c = np.array([radius * (1.0 - np.cos(th)), 0.0, radius * np.sin(th)])
+        R_wc = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]],
+                        dtype=np.float32)
+        T_wc = np.eye(4, dtype=np.float32)
+        T_wc[:3, :3] = R_wc
+        T_wc[:3, 3] = c
+        poses.append(np.linalg.inv(T_wc).astype(np.float32))
+    return np.stack(poses)
+
+
+def make_ring_world(n_points: int = 1200, radius: float = 15.0, seed: int = 0,
+                    r_off_range=(2.5, 12.0), y_range=(-3.5, 2.5), lateral_range=(-8.0, 8.0),
+                    sprite_r: int = SPRITE_R_DEF, coarse: int = 4) -> SyntheticWorld:
+    """World points in a band around the circular trajectory, ahead of the
+    tangent, so every lap segment (the revisit included) sees dense texture.
+    KITTI-size cameras have a narrow vertical field of view: push the band
+    deeper (``r_off_range``) and flatter (``y_range``) for them."""
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(0, 2 * np.pi, n_points)
+    r_off = rng.uniform(*r_off_range, n_points)
+    y = rng.uniform(*y_range, n_points)
+    cx = radius * (1 - np.cos(th))
+    cz = radius * np.sin(th)
+    tangent = np.stack([np.sin(th), np.zeros_like(th), np.cos(th)], -1)
+    outward = np.stack([-np.cos(th), np.zeros_like(th), np.sin(th)], -1)
+    lateral = rng.uniform(*lateral_range, n_points)
+    pts = (np.stack([cx, np.zeros_like(cx), cz], -1) + tangent * r_off[:, None]
+           + outward * lateral[:, None])
+    pts[:, 1] = y
+    patterns = _sprite_patterns(rng, n_points, sprite_r, coarse)
+    return SyntheticWorld(pts.astype(np.float32), patterns)
+
+
+def render_loop_sequence(config: SystemConfig, n_frames: int = 200, n_points: int = 1200,
+                         seed: int = 0, radius: float = 15.0, laps: float = 2.0,
+                         **world_kwargs):
+    """Stereo render of a multi-lap circular drive (keyframe culling,
+    capacity growth and loop closures).  ``world_kwargs`` go to
+    :func:`make_ring_world`.  Returns (lefts, rights, T_cw_gt, world)."""
+    cam = config.camera
+    world = make_ring_world(n_points, radius, seed, **world_kwargs)
+    poses = circular_trajectory(n_frames, radius, laps)
+    T_rl = np.array([[1, 0, 0, -cam.baseline_m], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                    dtype=np.float32)
+    view = lambda T: render_view(T, world, cam.height, cam.width,  # noqa: E731
+                                 cam.fx, cam.fy, cam.cx, cam.cy)
+    lefts = np.stack([view(T) for T in poses])
+    rights = np.stack([view(T_rl @ T) for T in poses])
+    return lefts, rights, poses, world

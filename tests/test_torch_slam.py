@@ -198,8 +198,13 @@ def test_slam_slice_matches_reference_per_frame(frames, reference_run, monkeypat
     dict(enable_relocalization=True),             # loop closing is on by default
 ])
 def test_disabled_features_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        tslam.StereoSlam(TCFG, device="cpu", **kwargs)
+    """Loop closing (the constructor's default) constructs, with no loop
+    closer before the first registered keyframe; RGB-D input, which is not
+    ported, still raises."""
+    slam = tslam.StereoSlam(TCFG, device="cpu", **kwargs)
+    assert slam.enable_loop_closing and slam.loop_closer is None and slam.loops_closed == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+        slam.process_rgbd(np.zeros((256, 512), np.float32), np.ones((256, 512), np.float32))
 
 
 @pytest.mark.parametrize("kwargs", [
