@@ -86,22 +86,47 @@ and the final line is not printed:
     verification's inputs, synced on both sides: ``loop_candidates``,
     ``_geometric_loop_query``, ``harvest_detect`` (host), ``verify_and_apply``,
     ``correct_loop``, ``optimize_pose_graph``, one
-    ``global_bundle_adjust_chunk``, and the card's run-to-run spread of the
-    last two (float ``index_add`` is atomic there);
+    ``global_bundle_adjust_chunk`` with its pose sums by blocks and again by
+    segments, and the card's run-to-run spread of the pose graph and the
+    chunk (0: every sum runs in a fixed order);
 16. the loop stages on the card against the CPU on that closure, with the
     card's RANSAC sets on both: ``compute_loop_transform`` (the same pairs,
     verdict, n_inliers and n_total, ``T_rel`` within 1e-3), ``correct_loop``
     (keyframe poses within 1e-3 m and 1e-3 rad) and one GBA chunk (cost
-    within 1e-3 relative, poses within 1e-3).
+    within 1e-3 relative, poses within 1e-3), and that chunk run twice on
+    the card, bit for bit;
+17. RGB-D SLAM: ``StereoSlam(cfg).process_rgbd`` (loop closing and
+    relocalization on, async) over phase 9's world and poses, rendered with
+    depth maps, for ``RGBD_FRAMES`` frames.  Gates: never lost, finite
+    poses, >= 5 keyframes, 1 FAST + 1 gather launch a frame (no SAD
+    gather), ATE (align=True) < ``RGBD_ATE_BOUND_M``.  Prints frames/s,
+    median and worst ms/frame, keyframes, points, device busy and idle
+    share, peak device memory;
+18. monocular SLAM: ``MonocularSlam(cfg)`` with its defaults over
+    ``MONO_DRIVE`` (tests/test_mono.py's lateral drive at KITTI size).
+    Gates: initialized by frame ``MONO_INIT_BY``, >= 2 keyframes, more than
+    ``MONO_MIN_POINTS`` points, translation direction cosine against the
+    truth > ``MONO_MIN_COS``, not lost within ``MONO_LOST_AFTER`` frames of
+    initialization, every pose finite, 1 FAST + 1 gather launch a frame;
+    the successful initializer attempt on the card against the CPU from the
+    same sets (same H/F choice, verdict and ``point_ok``, ``T_21`` within
+    ``MONO_INIT_POSE_TOL``).  Prints ms/frame before and after
+    initialization, the initializer's ms and host syncs, the Sim3-aligned
+    ATE (reported, not gated).
+
+Phases 3-4 also check the one-eye kernel cases of phases 17-18: one
+``fast_nms_pyramid`` launch over one eye's 8 levels, and the one-eye ORB
+atlas gather at N = 2000 and at the monocular initialization's 2048.
 
 Then one JSON line of kernel results (each kernel's per-frame numbers, its
 sites, and its launches on phase 15's path (``launches``) and on phases 5,
-9 and 12), the nvidia-smi line, and the last line
+9, 12, 17 and 18), the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports no jax.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -215,11 +240,12 @@ def kernel_launches(counts: dict, kernel: str) -> int:
     return sum(counts[w] for w in KERNEL_WRAPPERS[kernel])
 
 
-def record_sites(cfg, left, right):
-    """Run ``process_stereo`` once on ``left``/``right`` and return the main
-    path's kernel inputs ``(levels, threshold, orb_job, sad_jobs)``, a job
-    being ``(img, y0, x0, ph, pw)``."""
-    from opendlv_perception_vision_orbslam2_tpu_torch.models import extractor, frontend
+def _record(run) -> dict:
+    """Call ``run()`` (a front end) with the kernel wrappers' inputs
+    recorded: ``levels`` and ``th`` of ``fast_nms_pyramid``, the ORB job
+    ``orb`` of ``gather_patches`` and the SAD jobs ``sad`` of
+    ``gather_patches_multi``, a job being ``(img, y0, x0, ph, pw)``."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import extractor
     from opendlv_perception_vision_orbslam2_tpu_torch.ops import stereo
 
     rec = {}
@@ -232,11 +258,40 @@ def record_sites(cfg, left, right):
     for (mod, name, fn), (_, _, hook) in zip(saved, hooks):
         setattr(mod, name, lambda *a, _fn=fn, _hook=hook: (_hook(*a), _fn(*a))[1])
     try:
-        frontend.process_stereo(left, right, cfg, 0.0)
+        run()
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+    return rec
+
+
+def record_sites(cfg, left, right):
+    """Run ``process_stereo`` once on ``left``/``right`` and return the main
+    path's kernel inputs ``(levels, threshold, orb_job, sad_jobs)``."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import frontend
+
+    rec = _record(lambda: frontend.process_stereo(left, right, cfg, 0.0))
     return list(rec["levels"]), rec["th"], tuple(rec["orb"]), [tuple(j) for j in rec["sad"]]
+
+
+def record_one_eye(cfg, gray, depth):
+    """The one-eye front ends' kernel inputs on one frame: ``(levels,
+    threshold, orb_job)`` of ``process_rgbd`` at ``cfg``'s budget and the
+    ORB job of ``process_mono`` at the monocular initialization budget
+    (twice the features, capped at ``max_keypoints``).  Neither makes a SAD
+    gather."""
+    import dataclasses
+
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import frontend
+
+    rec = _record(lambda: frontend.process_rgbd(gray, depth, cfg, 0.0))
+    orb = cfg.orb
+    init_cfg = dataclasses.replace(cfg, orb=dataclasses.replace(
+        orb, n_features=min(2 * orb.n_features, orb.max_keypoints)))
+    mono = _record(lambda: frontend.process_mono(gray, init_cfg, 0.0))
+    if "sad" in rec or "sad" in mono:
+        raise AssertionError("a one-eye front end launched the SAD gather")
+    return list(rec["levels"]), rec["th"], tuple(rec["orb"]), tuple(mono["orb"])
 
 
 def site_row(site: str, launches: int, ms: float, plain_ms: float, n_bytes: int, n_ops: int,
@@ -994,6 +1049,14 @@ def synced_ms(fn, reps: int = 3):
 # the loop slice's modules and driver methods, for the sync report
 LOOP_FILES = ("loop_closing.py", "global_ba.py", "gba.py", "pose_graph.py", "horn.py")
 LOOP_METHODS = ("_try_harvest_loop", "_dispatch_verify", "_service_gba")
+# the functions that held the host syncs repaired with the sensor slice: the
+# dump-slot writes now go through ``fill_at``; the scale, timestamp, angle
+# bin and pose-row constants are device fills; the images go through
+# pinned buffers (``_to_device``)
+REPAIRED_SYNC_FUNCS = ("fill_at", "_alloc_point_slots", "_fuse_core", "_mark",
+                       "_search_local_points", "track_frame_with_map", "extract_local_ba_grid",
+                       "local_mapping_step", "cull_keyframes", "_to_features", "_to_device",
+                       "brief_from_blurred", "stereo_match", "process_stereo", "make_T")
 
 
 class _SyncCounter:
@@ -1020,16 +1083,20 @@ class _SyncCounter:
             if "synchroniz" not in str(message):
                 return
             self.n += 1
-            site = loop_site = None
+            site = loop_site = outside = None
             for fr in reversed(traceback.extract_stack()[:-1]):
                 if "opendlv_perception_vision_orbslam2_tpu_torch" not in fr.filename:
+                    if outside is None and "/torch/" not in fr.filename and \
+                            "warnings" not in fr.filename:
+                        outside = f"outside the port: {Path(fr.filename).name}:{fr.lineno} " \
+                                  f"{fr.name}"
                     continue
                 here = f"{Path(fr.filename).name}:{fr.lineno} {fr.name}"
                 site = site or here
                 if Path(fr.filename).name in LOOP_FILES or fr.name in LOOP_METHODS:
                     loop_site = f"{site} <- {here}" if here != site else here
                     break
-            site = site or "other"
+            site = site or outside or "other"
             self.sites[site] = self.sites.get(site, 0) + 1
             if loop_site is not None:
                 self.loop_sites[loop_site] = self.loop_sites.get(loop_site, 0) + 1
@@ -1235,9 +1302,11 @@ def loop_phases(cfg, dev):
               f"{1 - busy_ms / prof_ms:.3f} of {prof_ms:.2f} ms/frame (profiled)", flush=True)
     top = sorted(syncs.sites.items(), key=lambda kv: -kv[1])
     loop_sites = sorted(syncs.loop_sites.items(), key=lambda kv: -kv[1])
+    repaired = sum(v for k, v in top if k.split()[-1] in REPAIRED_SYNC_FUNCS)
     print(f"loop_syncs: {n_sync} host syncs over frames {LOOP_WARM}-{n - 1} "
-          f"({n_sync / (n - LOOP_WARM):.2f} a frame; torch.cuda.set_sync_debug_mode) | top "
-          "sites: " + "; ".join(f"{k} x{v}" for k, v in top[:8])
+          f"({n_sync / (n - LOOP_WARM):.2f} a frame; torch.cuda.set_sync_debug_mode), "
+          f"{syncs.n} over the whole drive, {repaired} of them at the repaired sites | every "
+          "site (innermost frame in the port): " + "; ".join(f"{k} x{v}" for k, v in top)
           + " | in the loop-closing and GBA code: "
           + ("; ".join(f"{k} x{v}" for k, v in loop_sites) or "none"), flush=True)
     if slam.loops_closed < 1:
@@ -1290,12 +1359,20 @@ def loop_phases(cfg, dev):
     layers["global_bundle_adjust_chunk"], carry = synced_ms(
         lambda: gba_mod.global_bundle_adjust_chunk(
             gba.prob, gba.carry, fx=cfg.camera.fx, fy=cfg.camera.fy, cx=cfg.camera.cx,
-            cy=cfg.camera.cy, bf=cfg.camera.bf, n_outer=1, cg_iters=gba.cg_iters))
-    # run-to-run spread on the card (index_add of floats is atomic there)
+            cy=cfg.camera.cy, bf=cfg.camera.bf, n_outer=1, cg_iters=gba.cg_iters,
+            sums=gba.sums))
+    # the same chunk with its pose sums by segments instead of blocks
+    seg_sums = gba_mod.segment_sums(gba.prob)
+    layers["global_bundle_adjust_chunk, pose sums by segments"], _ = synced_ms(
+        lambda: gba_mod.global_bundle_adjust_chunk(
+            gba.prob, gba.carry, fx=cfg.camera.fx, fy=cfg.camera.fy, cx=cfg.camera.cx,
+            cy=cfg.camera.cy, bf=cfg.camera.bf, n_outer=1, cg_iters=gba.cg_iters,
+            sums=seg_sums))
+    # run-to-run spread on the card (0: every sum runs in a fixed order)
     pg_again = pose_graph.optimize_pose_graph(pg, n_iters=15)
     carry_again = gba_mod.global_bundle_adjust_chunk(
         gba.prob, gba.carry, fx=cfg.camera.fx, fy=cfg.camera.fy, cx=cfg.camera.cx,
-        cy=cfg.camera.cy, bf=cfg.camera.bf, n_outer=1, cg_iters=gba.cg_iters)
+        cy=cfg.camera.cy, bf=cfg.camera.bf, n_outer=1, cg_iters=gba.cg_iters, sums=gba.sums)
     spread_pg = float((pg_again[0] - pg_out[0]).abs().max())
     spread_gba = float((carry_again[0] - carry[0]).abs().max())
     print(f"loop_layers: on the closing verification's inputs (K {m0.kf_capacity}, P "
@@ -1329,8 +1406,15 @@ def loop_phases(cfg, dev):
     dt_c, dr_c = _pose_gap(c_card.kf_T_cw, c_cpu.kf_T_cw, valid_kf)
     g_card = global_ba.IncrementalGBA(c_card, cfg)
     g_cpu = global_ba.IncrementalGBA(to_cpu(c_card), cfg)
+    carry0 = g_card.carry
     g_card.step()
     g_cpu.step()
+    # the same chunk again on the card: bit for bit (fixed-order sums)
+    again = gba_mod.global_bundle_adjust_chunk(
+        g_card.prob, carry0, fx=cfg.camera.fx, fy=cfg.camera.fy, cx=cfg.camera.cx,
+        cy=cfg.camera.cy, bf=cfg.camera.bf, n_outer=1, cg_iters=g_card.cg_iters,
+        sums=g_card.sums)
+    chunk_bits = all(torch.equal(a, b) for a, b in zip(again, g_card.carry))
     cost_card, cost_cpu = float(g_card.carry[3]), float(g_cpu.carry[3])
     dt_g, dr_g = _pose_gap(g_card.carry[0], g_cpu.carry[0], valid_kf)
     # where card and CPU part: the same chunk stopped after 5-40 CG steps,
@@ -1358,7 +1442,10 @@ def loop_phases(cfg, dev):
           f"(bound 1e-3) | correct_loop: keyframe poses {dt_c:.3g} m, {dr_c:.3g} rad (bounds "
           f"1e-3) | one GBA chunk: cost {cost_card:.6g} vs {cost_cpu:.6g} (relative "
           f"{abs(cost_card - cost_cpu) / abs(cost_cpu):.3g}, bound 1e-3), poses {dt_g:.3g} m, "
-          f"{dr_g:.3g} rad (bounds 1e-3)", flush=True)
+          f"{dr_g:.3g} rad (bounds 1e-3) | the chunk twice on the card: "
+          f"{'bit-equal' if chunk_bits else 'DIFFERENT'} (edge sums: "
+          f"{'blocks of ' + str(g_card.sums.pose_block) if g_card.sums.pose_block else 'segments'}"
+          f" by pose, segments by point)", flush=True)
     print("loop_gba_precision: one chunk after 5/10/20/40 CG steps, max keyframe translation "
           "gap m | card-CPU float32, card float32-float64, CPU float32-float64, card-CPU "
           "float64: " + " | ".join(f"{cg}: {a:.3g}, {b:.3g}, {c:.3g}, {d:.3g}"
@@ -1369,9 +1456,227 @@ def loop_phases(cfg, dev):
         raise AssertionError("loop card vs CPU: correct_loop differs")
     if not (abs(cost_card - cost_cpu) < 1e-3 * abs(cost_cpu) and dt_g < 1e-3 and dr_g < 1e-3):
         raise AssertionError("loop card vs CPU: the GBA chunk differs")
+    if not chunk_bits:
+        raise AssertionError("GBA: one chunk run twice on the card differs")
     t_phase.append(time.perf_counter())
     print("loop_phases_seconds: phase 15 drive / 15 layers / 16: "
           + " / ".join(f"{b - a:.1f}" for a, b in zip(t_phase, t_phase[1:])), flush=True)
+    return launches
+
+
+# Phase 17: tests/test_rgbd.py's ATE bound, on phase 9's world and poses
+# continued to 48 frames.  On phase 9's 24 frames the reference package
+# makes 4 keyframes on the CPU, as the port does on the card, and 8 over
+# these 48 (tests/test_torch_rgbd.py::test_kitti_rgbd_reference_run, which
+# holds it to this phase's gates): exact depth keeps the tracked share above
+# the keyframe rule's thresholds, and >= 5 keyframes are needed for keyframe
+# culling to run.
+RGBD_ATE_BOUND_M = 0.10
+RGBD_FRAMES = 48
+RGBD_DRIVE = dict(n_points=900, seed=0, step=0.6)      # phase 9's world and poses
+# Phase 18: tests/test_mono.py's lateral drive at KITTI size (sideways-
+# dominant motion over a close world: forward motion is the degenerate case
+# that the reference's 0.9 N reconstruction gates refuse), and its bars
+MONO_DRIVE = dict(n_frames=20, n_points=2000, seed=9, step=0.05, step_x=0.15,
+                  z_range=(3.0, 15.0))
+# Initialized by this frame.  tests/test_mono.py's bar is frame 4 on its
+# 512x256 fixture, where the reference initializes at frame 2.  On this
+# drive the reference package initializes at frame 7 on the CPU (from frame
+# 4, after resets of the init frame;
+# tests/test_torch_mono.py::test_kitti_mono_reference_run, which holds it to
+# this phase's gates): the bound keeps the fixture's two frames of margin.
+MONO_INIT_BY = 9
+MONO_MIN_POINTS = 50         # more map points than this
+MONO_MIN_COS = 0.966         # translation direction within 15 degrees of the truth
+MONO_LOST_AFTER = 4          # not lost within this many frames of initialization
+MONO_INIT_POSE_TOL = 1e-3    # the initializer's T_21, card against CPU
+
+
+def _check_pose(what, i, T, slam):
+    """Raise if frame ``i``'s pose is missing or not finite, or tracking is lost."""
+    import numpy as np
+
+    if T is None:
+        raise AssertionError(f"{what}: no pose at frame {i}")
+    if not np.isfinite(T.cpu().numpy()).all():
+        raise AssertionError(f"{what}: non-finite pose at frame {i}")
+    if slam.lost:
+        raise AssertionError(f"{what}: tracking lost at frame {i}")
+
+
+def rgbd_phase(cfg, dev, n_frames: int = RGBD_FRAMES):
+    """Phase 17: ``StereoSlam(cfg).process_rgbd`` (loop closing and
+    relocalization on, async) over phase 9's world and poses as RGB-D frames
+    at KITTI size.  Returns its launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as slam_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic, trajectory
+
+    t0 = time.perf_counter()
+    gc.collect()                 # the loop phases' maps out of this phase's peak
+    rcfg = dataclasses.replace(cfg, camera_type="rgbd")
+    grays, depths, gt, _ = synthetic.render_rgbd_sequence(rcfg, n_frames=n_frames, **RGBD_DRIVE)
+    n, n_prof, fps = grays.shape[0], 6, cfg.camera.fps
+    torch.cuda.reset_peak_memory_stats()
+    slam = slam_mod.StereoSlam(rcfg, device=dev)
+    reset_launches()
+    lat, kf_at = [], []
+
+    def frame(i):
+        t = time.perf_counter()
+        n_kf = slam.n_keyframes
+        T = slam.process_rgbd(grays[i], depths[i], timestamp=i / fps)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        if slam.n_keyframes != n_kf:
+            kf_at.append(i)
+        _check_pose("RGB-D", i, T, slam)
+
+    for i in range(n - n_prof):
+        frame(i)
+    todo = iter(range(n - n_prof, n))
+    busy_ms, ops = device_busy(lambda: frame(next(todo)), n_prof)
+    launches = read_launches()
+    slam.finish()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    poses = [T.cpu().numpy() for T in slam.trajectory]
+    ate = trajectory.ate_rmse(poses, list(gt))
+    ate_raw = trajectory.ate_rmse(poses, list(gt), align=False)
+    timed = 1e3 * np.array(lat[8:n - n_prof])         # steady frames, not profiled
+    m = slam.map
+    print(f"rgbd_kitti: {n} frames 1241x376 with depth maps (phase 9's world and poses), 2000 "
+          f"features, "
+          f"8 levels, StereoSlam(cfg).process_rgbd, async | frames 8-{n - n_prof - 1}: "
+          f"{1e3 / timed.mean():.2f} frames/s, ms/frame median {np.median(timed):.2f} worst "
+          f"{timed.max():.2f} | first frame {1e3 * lat[0]:.1f} ms | keyframes {slam.n_keyframes} "
+          f"(valid {int(m.kf_valid.sum())}) | map points {int(m.pt_valid.sum())} | device busy "
+          f"{busy_ms:.2f} ms/frame in {ops:.0f} device ops (torch.profiler, frames "
+          f"{n - n_prof}-{n - 1}), idle share {1 - busy_ms / float(np.mean(timed)):.3f} | peak "
+          f"device memory {peak_gb:.3f} GB | ATE {ate:.4f} m (align=True, bound "
+          f"{RGBD_ATE_BOUND_M} m; align=False {ate_raw:.4f} m) | launches/frame "
+          f"{per_frame(launches, n)} | keyframes inserted at frames {kf_at} | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if slam.lost:
+        raise AssertionError("RGB-D: tracking lost at the last frame")
+    expected = {"fast_nms": 0, "fast_nms_pyramid": n, "gather_patches": n,
+                "gather_patches_multi": 0}
+    if launches != expected:
+        raise AssertionError(f"RGB-D: kernel launches {launches}, expected {expected}")
+    if slam.n_keyframes < 5:
+        raise AssertionError(f"RGB-D: {slam.n_keyframes} keyframes in {n} frames, need >= 5")
+    if not ate < RGBD_ATE_BOUND_M:
+        raise AssertionError(f"RGB-D: ATE {ate:.4f} m >= {RGBD_ATE_BOUND_M} m")
+    return launches
+
+
+def mono_phase(cfg, dev):
+    """Phase 18: ``MonocularSlam(cfg)`` with its defaults over ``MONO_DRIVE``
+    at KITTI size, and the initializer's successful attempt on the card
+    against the CPU from the same sets.  Returns its launch counts."""
+    import numpy as np
+    import torch
+
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import initializer
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import mono_slam as mono_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic, trajectory
+
+    t0 = time.perf_counter()
+    lefts, _, gt, _ = synthetic.render_stereo_sequence(cfg, **MONO_DRIVE)
+    n, fps = lefts.shape[0], cfg.camera.fps
+    slam = mono_mod.MonocularSlam(cfg, device=dev)
+    attempts, inner = [], mono_mod.initialize_two_view
+
+    def recorded(*args, **kwargs):
+        res = inner(*args, **kwargs)
+        attempts.append((args, kwargs, res))
+        return res
+
+    mono_mod.initialize_two_view = recorded
+    reset_launches()
+    lat, lost, init_at, ref_idx, ref_at = [], [], None, None, None
+    try:
+        for i in range(n):
+            ref_before = slam._init_ref
+            t = time.perf_counter()
+            T = slam.process(lefts[i], timestamp=i / fps)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t)
+            if not slam.initialized:
+                if slam._init_ref is not None and slam._init_ref is not ref_before:
+                    ref_idx = i            # this frame became the init frame
+                continue
+            if init_at is None:
+                init_at, init_T, ref_at = i, T.cpu().numpy(), ref_idx
+            if T is None or not np.isfinite(T.cpu().numpy()).all():
+                raise AssertionError(f"mono: missing or non-finite pose at frame {i}")
+            if slam.lost:
+                lost.append(i)
+    finally:
+        mono_mod.initialize_two_view = inner
+    launches = read_launches()
+    slam.finish()
+    expected = {"fast_nms": 0, "fast_nms_pyramid": n, "gather_patches": n,
+                "gather_patches_multi": 0}
+    if launches != expected:
+        raise AssertionError(f"mono: kernel launches {launches}, expected {expected}")
+    if init_at is None or init_at > MONO_INIT_BY:
+        verdicts = [(bool(r.success), "H" if bool(r.used_homography) else "F",
+                     int(r.point_ok.sum())) for _, _, r in attempts]
+        raise AssertionError(f"mono: initialized at frame {init_at}, bound {MONO_INIT_BY}; "
+                             f"initializer attempts (success, model, points) {verdicts}")
+    T_gt = gt[init_at] @ np.linalg.inv(gt[ref_at])
+    cos = float(init_T[:3, 3] @ T_gt[:3, 3]
+                / (np.linalg.norm(init_T[:3, 3]) * np.linalg.norm(T_gt[:3, 3])))
+    n_pts = int(slam.map.pt_valid.sum())
+    est = slam.corrected_trajectory()
+    gt_sel = [gt[ref_at]] + list(gt[init_at:])
+    ate = (f"{trajectory.ate_rmse(est, gt_sel, with_scale=True):.4f} m" if len(est) == len(gt_sel)
+           else f"not comparable ({len(est)} poses for {len(gt_sel)} frames: a reset)")
+
+    # the successful attempt's initializer, card against CPU, the same sets
+    # drawn once on the CPU
+    (xy1, xy2, valid, _), kw, _ = [a for a in attempts if bool(a[2].success)][-1]
+    sets = initializer.sample_sets(valid.cpu(), torch.Generator().manual_seed(21))
+    init_ms, card = synced_ms(lambda: initializer.initialize_two_view(
+        xy1, xy2, valid, sets=sets.to(dev), **kw))
+    with _SyncCounter() as syncs:
+        initializer.initialize_two_view(xy1, xy2, valid, sets=sets.to(dev), **kw)
+        torch.cuda.synchronize()
+    cpu = initializer.initialize_two_view(xy1.cpu(), xy2.cpu(), valid.cpu(), sets=sets, **kw)
+    same = (bool(card.success) == bool(cpu.success)
+            and bool(card.used_homography) == bool(cpu.used_homography)
+            and torch.equal(card.point_ok.cpu(), cpu.point_ok))
+    d_T = float((card.T_21.cpu() - cpu.T_21).abs().max())
+    lat_ms = 1e3 * np.array(lat)
+    print(f"mono_kitti: {n} frames 1241x376 (lateral drive: {MONO_DRIVE}), "
+          f"MonocularSlam(cfg) defaults | initialized at frame {init_at} from frame {ref_at} "
+          f"after {len(attempts)} initializer attempt(s) (bound: by frame {MONO_INIT_BY}) | "
+          f"direction cosine {cos:.5f} (bound > {MONO_MIN_COS}) | keyframes {slam.n_keyframes} | "
+          f"map points {n_pts} (bound > {MONO_MIN_POINTS}) | lost frames {lost} | ms/frame "
+          f"until initialized median {np.median(lat_ms[:init_at + 1]):.2f}, after "
+          f"{np.median(lat_ms[init_at + 1:]):.2f} (worst {lat_ms[init_at + 1:].max():.2f}) | "
+          f"Sim3-aligned ATE {ate} (reported) | launches/frame {per_frame(launches, n)} | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"mono_initializer: the successful attempt ({int(valid.sum())} matches) from the same "
+          f"sets: card {init_ms:.2f} ms (median of 3, sync both sides), {syncs.n} host syncs "
+          f"({'; '.join(f'{k} x{v}' for k, v in sorted(syncs.sites.items()))}) | card vs CPU: "
+          f"H/F {'H' if bool(card.used_homography) else 'F'} / "
+          f"{'H' if bool(cpu.used_homography) else 'F'}, success {bool(card.success)} / "
+          f"{bool(cpu.success)}, point_ok {'identical' if same else 'DIFFER'} "
+          f"({int(card.point_ok.sum())} / {int(cpu.point_ok.sum())}), T_21 max diff {d_T:.3g} "
+          f"(bound {MONO_INIT_POSE_TOL})", flush=True)
+    if slam.n_keyframes < 2 or not n_pts > MONO_MIN_POINTS:
+        raise AssertionError(f"mono: {slam.n_keyframes} keyframes, {n_pts} points")
+    if not cos > MONO_MIN_COS:
+        raise AssertionError(f"mono: direction cosine {cos:.4f} <= {MONO_MIN_COS}")
+    if lost and lost[0] - init_at < MONO_LOST_AFTER:
+        raise AssertionError(f"mono: lost at frame {lost[0]}, initialized at {init_at}")
+    if not same or not d_T < MONO_INIT_POSE_TOL:
+        raise AssertionError("mono: the initializer differs between card and CPU")
     return launches
 
 
@@ -1419,10 +1724,12 @@ def main() -> int:
 
     cfg = SystemConfig()  # KITTI-00 geometry, 2000 features, 8 levels
     cam, orb = cfg.camera, cfg.orb
-    lefts, rights, gt, _ = synthetic.render_stereo_sequence(
+    lefts, rights, gt, world = synthetic.render_stereo_sequence(
         cfg, n_frames=24, n_points=900, seed=0, step=0.6
     )
     both = torch.from_numpy(np.stack([lefts[0], rights[0]])).to(dev)
+    depth0 = torch.from_numpy(synthetic.render_depth_map(
+        gt[0], world, cam.height, cam.width, cam.fx, cam.fy, cam.cx, cam.cy)).to(dev)
     results = {}
 
     # -- 3. FAST+NMS kernel vs plain ----------------------------------------
@@ -1440,6 +1747,14 @@ def main() -> int:
             for lvl, (m, lv) in enumerate(zip(maps, lvls)):
                 err = max(err, check_equal(f"fast_nms_pyramid {kind} level {lvl} th={t}", m,
                                            fast_kernel.fast_nms_plain(lv, t)))
+    # one eye (the RGB-D and monocular front ends): the 8 levels of the
+    # frame's left image in one launch
+    one_levels, _, one_orb, mono_orb = record_one_eye(cfg, both[0], depth0)
+    for t in FAST_THRESHOLDS:
+        maps = fast_kernel.fast_nms_pyramid(one_levels, t)
+        for lvl, (m, lv) in enumerate(zip(maps, one_levels)):
+            err = max(err, check_equal(f"fast_nms_pyramid one eye level {lvl} th={t}", m,
+                                       fast_kernel.fast_nms_plain(lv, t)))
     for t in (7.0, 20.0):   # the one-image entry point
         err = max(err, check_equal(f"fast_nms random th={t}",
                                    fast_kernel.fast_nms(pyramids["random"][0][0], t),
@@ -1458,13 +1773,21 @@ def main() -> int:
     frame_row = site_row("pyramid (per frame)", 1, pyr["kernel"]["device_ms"],
                          pyr["plain"]["device_ms"], n_bytes, n_ops, None,
                          candidate_share=[round(x, 4) for x in shares])
+    n_bytes, n_ops, shares = fast_work(one_levels, th)
+    one = timed_pair(lambda: fast_kernel.fast_nms_pyramid(one_levels, th),
+                     lambda: [fast_kernel.fast_nms_plain(lv, th) for lv in one_levels])
+    one_row = site_row("one-eye pyramid (RGB-D / mono frame)", 1, one["kernel"]["device_ms"],
+                       one["plain"]["device_ms"], n_bytes, n_ops, None,
+                       candidate_share=[round(x, 4) for x in shares])
     results["fast_nms"] = dict(max_abs_err=err, **kernel_fields(frame_row),
-                               wall_ms=pyr["kernel"]["wall_ms"], sites=fast_sites + [frame_row])
+                               wall_ms=pyr["kernel"]["wall_ms"],
+                               sites=fast_sites + [frame_row, one_row])
     print(f"fast_nms: bit-equal to plain, fast_nms_pyramid on the frame's and on random and "
-          f"integer-valued 376x1241 pyramids ({len(levels)} levels x 2 eyes) at th "
+          f"integer-valued 376x1241 pyramids ({len(levels)} levels x 2 eyes) and on the "
+          f"frame's one-eye pyramid ({len(one_levels)} levels) at th "
           f"{'/'.join(f'{t:g}' for t in FAST_THRESHOLDS)}, fast_nms on a random image at th 7/20 "
-          f"| per frame at th {th:g}: {fmt_pair(pyr)}", flush=True)
-    for row in fast_sites + [frame_row]:
+          f"| per frame at th {th:g}: {fmt_pair(pyr)} | one eye: {fmt_pair(one)}", flush=True)
+    for row in fast_sites + [frame_row, one_row]:
         print(fmt_site("fast_nms", row), flush=True)
 
     # -- 4. gather_patches kernel vs plain -----------------------------------
@@ -1476,6 +1799,10 @@ def main() -> int:
         err = max(err, check_equal(f"gather_patches_multi {name}", out,
                                    gather_kernel.gather_patches_plain(*job)))
         err = max(err, check_equal(f"gather {name}", gather_kernel.gather_patches(*job),
+                                   gather_kernel.gather_patches_plain(*job)))
+    for name, job in (("one-eye ORB atlas", one_orb), ("mono init ORB atlas", mono_orb)):
+        err = max(err, check_equal(f"gather {name} N={job[1].shape[0]}",
+                                   gather_kernel.gather_patches(*job),
                                    gather_kernel.gather_patches_plain(*job)))
     oy = torch.tensor([-7, 0, atlas.shape[0], 10**6, -(10**6)], dtype=torch.int32, device=dev)
     ox = torch.tensor([atlas.shape[1], -3, 5, -(10**6), 10**6], dtype=torch.int32, device=dev)
@@ -1512,14 +1839,21 @@ def main() -> int:
                          orb_row["plain_ms"] + pair_row["plain_ms"],
                          gather_bytes([orb_job, *sad_jobs]), 0,
                          orb_row["library_ms"] + pair_row["library_ms"])
+    one_rows = [site_row(f"{name} {job[3]}x{job[4]} N={job[1].shape[0]} (one launch a frame)", 1,
+                         graph_ms(lambda job=job: gather_kernel.gather_patches(*job)),
+                         graph_ms(lambda job=job: gather_kernel.gather_patches_plain(*job)),
+                         gather_bytes([job]), 0, graph_ms(unfold_gather(*job)))
+                for name, job in (("one-eye ORB atlas (RGB-D)", one_orb),
+                                  ("one-eye ORB atlas (mono init)", mono_orb))]
     results["gather_patches"] = dict(max_abs_err=err, **kernel_fields(frame_row),
-                                     sites=gather_sites + [pair_row, frame_row])
+                                     sites=gather_sites + [pair_row, frame_row] + one_rows)
     print(f"gather_patches: bit-equal to plain on the frame's ORB atlas (N={ys.shape[0]}, "
           f"{side}x{side}), its SAD windows 11x11 and strips 11x21 (gather_patches and one "
-          f"gather_patches_multi launch) and clipped starts", flush=True)
-    for row in gather_sites + [pair_row, frame_row]:
+          f"gather_patches_multi launch), the one-eye ORB atlases (N={one_orb[1].shape[0]}, "
+          f"{mono_orb[1].shape[0]}) and clipped starts", flush=True)
+    for row in gather_sites + [pair_row, frame_row] + one_rows:
         print(fmt_site("gather_patches", row), flush=True)
-    del pyramids, maps, clipped, expect, far   # out of phase 9's peak device memory
+    del pyramids, maps, clipped, expect, far, one_levels, one_orb, mono_orb  # phase 9's peak
 
     # -- 5. the VO slice at KITTI size ----------------------------------------
     vo = StereoVisualOdometry(cfg, device=dev)
@@ -1725,13 +2059,21 @@ def main() -> int:
     # -- 15-16. loop closing and global BA on the loop circuit ---------------
     loop_launches = loop_phases(cfg, dev)
 
+    # -- 17-18. RGB-D and monocular SLAM at KITTI size ------------------------
+    t_phase = time.perf_counter()
+    rgbd_launches = rgbd_phase(cfg, dev)
+    mono_launches = mono_phase(cfg, dev)
+    print(f"sensor_phases_seconds: phases 17-18 {time.perf_counter() - t_phase:.1f}", flush=True)
+
     kernels = [
         dict(name=name, route="cuda",
              source=f"opendlv_perception_vision_orbslam2_tpu_torch/csrc/{name}.cu",
              replaces=REPLACES[name], launches=kernel_launches(loop_launches, name),
              launches_vo=kernel_launches(launches, name),
              launches_slam=kernel_launches(slam_launches, name),
-             launches_reloc=kernel_launches(reloc_launches, name), **results[name])
+             launches_reloc=kernel_launches(reloc_launches, name),
+             launches_rgbd=kernel_launches(rgbd_launches, name),
+             launches_mono=kernel_launches(mono_launches, name), **results[name])
         for name in ("fast_nms", "gather_patches")
     ]
     print(json.dumps({"kernels": kernels}))

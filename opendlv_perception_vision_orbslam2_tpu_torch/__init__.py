@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the ORB-SLAM2-class stereo engine.
+"""PyTorch/CUDA port of the ORB-SLAM2-class SLAM engine (stereo, RGB-D, mono).
 
 The JAX package ``opendlv_perception_vision_orbslam2_tpu`` is the reference;
 this package mirrors its layout and module names so each counterpart is easy
@@ -7,9 +7,10 @@ to find:
   ops/       geometry + image/feature ops (SE3/Sim3, Horn, pyramid, FAST,
              ORB, Hamming, stereo, matching) and the two hand-written CUDA
              kernels' wrappers (``fast_kernel``, ``gather_kernel``)
-  models/    frame containers, ORB extractor, stereo front end, VO tracker,
-             map, mapping stage, place recognition, relocalization, loop
-             closing, global BA, the SLAM driver
+  models/    frame containers, ORB extractor, stereo / RGB-D / mono front
+             ends, VO tracker, map, mapping stage, place recognition,
+             relocalization, loop closing, global BA, the two-view
+             initializer, the SLAM drivers (stereo and RGB-D, monocular)
   optim/     EPnP RANSAC, pose-only Gauss-Newton, grid local BA, global BA,
              the essential-graph pose graph
   utils/     config (copied verbatim), numpy synthetic world, ATE, host
@@ -31,3 +32,9 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from .models.mono_slam import MonocularSlam  # noqa: E402
+from .models.slam import StereoSlam  # noqa: E402
+from .models.tracking import StereoVisualOdometry  # noqa: E402
+
+__all__ = ["MonocularSlam", "StereoSlam", "StereoVisualOdometry"]

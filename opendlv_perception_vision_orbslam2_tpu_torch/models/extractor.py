@@ -1,16 +1,17 @@
-"""ORB feature extraction for a stereo pair (pyramid -> FAST -> select -> describe).
+"""ORB feature extraction for one image or a stereo pair (pyramid -> FAST ->
+select -> describe).
 
 Counterpart of the reference package's ``models/extractor.py``
 (OrbExtractor::ExtractFeatures, reference: src/orbextractor.cpp:582-642):
 
-- every pyramid level of both eyes goes through ONE launch of the fused
-  FAST+NMS kernel (``ops/fast_kernel.py::fast_nms_pyramid``);
+- every pyramid level of the image (or of both eyes) goes through ONE
+  launch of the fused FAST+NMS kernel (``ops/fast_kernel.py::fast_nms_pyramid``);
 - DistributeOctTree becomes a per-cell top-k + breadth-first global
   selection (every cell's best corner before any cell's second best);
 - the ini/min FAST threshold fallback is kept: strong corners outrank weak
   ones inside each cell;
-- every keypoint of both eyes and all levels gets its 45x45 patch from one
-  edge-padded two-eye atlas in one launch of the window-gather kernel, then
+- every keypoint of all levels (of both eyes) gets its 45x45 patch from one
+  edge-padded atlas in one launch of the window-gather kernel, then
   orientation and steered BRIEF run over all patches at once.
 
 Ties are broken as the reference package breaks them: ``lax.top_k`` puts the
@@ -20,6 +21,7 @@ per-cell argmax takes the first occurrence, as ``torch.argmax`` does.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -158,10 +160,17 @@ def patch_atlas_starts(levels: Sequence, y0, x0, config: OrbConfig):
                                 config.n_levels)
     atlas, offsets = orb_ops.build_patch_atlas(levels)       # [B, rows, W]
     eye_rows = atlas.shape[1]
-    lvl_off = torch.from_numpy(np.repeat(offsets, budgets)).to(y0.device)
+    lvl_off = _level_offsets(tuple(int(o) for o in offsets), tuple(budgets), y0.device)
     eye_off = torch.arange(B, device=y0.device, dtype=torch.int32)[:, None] * eye_rows
     ys = (y0 + lvl_off[None, :] + eye_off).reshape(-1)
     return atlas.reshape(B * eye_rows, -1), ys, x0.reshape(-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _level_offsets(offsets: tuple, budgets: tuple, device):
+    """Each keypoint slot's level row offset in the atlas, copied to
+    ``device`` once (a copy per frame would wait for the stream)."""
+    return torch.from_numpy(np.repeat(np.asarray(offsets, np.int32), budgets)).to(device)
 
 
 def _gather_all_patches(levels: Sequence, y0, x0, config: OrbConfig):
@@ -174,7 +183,7 @@ def _gather_all_patches(levels: Sequence, y0, x0, config: OrbConfig):
 def _to_features(config, xy_lvl, response, octave, angle, desc, valid) -> Features:
     """Scale level coords to level-0 pixels and pad to the static capacity
     (reference: src/orbextractor.cpp:630-641)."""
-    sf = torch.tensor(config.scale_factor, dtype=torch.float32, device=xy_lvl.device)
+    sf = torch.full((), config.scale_factor, dtype=torch.float32, device=xy_lvl.device)
     scale = torch.pow(sf, octave.to(torch.float32))
     xy = xy_lvl * scale[:, None]
 
@@ -199,6 +208,19 @@ def _to_features(config, xy_lvl, response, octave, angle, desc, valid) -> Featur
         u_right=padded(minus_one, -1),
         depth=padded(minus_one, -1),
     )
+
+
+def extract_from_pyramid(levels: Sequence, config: OrbConfig) -> Features:
+    """One-eye extraction from levels ``[H_l, W_l]`` (the RGB-D and
+    monocular front ends): each level stacked as ``[1, H_l, W_l]`` through
+    the same path as the pair, one FAST+NMS and one patch-gather launch."""
+    stacked = [lv[None] for lv in levels]
+    xy, response, octave, valid, y0, x0 = _select_pyramid_keypoints(stacked, config)
+    patches = _gather_all_patches(stacked, y0, x0, config)
+    xy = xy + fast_ops.subpixel_peak_from_patches(patches, orb_ops.PATCH_HALF)[None]
+    angle = orb_ops.ic_angles_from_patches(patches)
+    desc = orb_ops.brief_from_patches(patches, angle)
+    return _to_features(config, xy[0], response[0], octave[0], angle, desc, valid[0])
 
 
 def extract_from_pyramid_pair(levels_lr: Sequence, config: OrbConfig):

@@ -1,10 +1,10 @@
-"""Stereo frame front end: images in, FrameState out.
+"""Frame front ends: images in, FrameState out.
 
-Counterpart of ``process_stereo`` in the reference package's
-``models/frontend.py`` (the stereo OrbFrame constructor, reference:
-src/orbframe.cpp:61-88): one batched pyramid for both eyes, joint
-extraction, stereo matching and unprojection.  ``process_rgbd`` and
-``process_mono`` come with a later slice.
+Counterpart of the reference package's ``models/frontend.py`` (the OrbFrame
+constructors, reference: src/orbframe.cpp:61-88, 90-147): ``process_stereo``
+runs one batched pyramid for both eyes, joint extraction, stereo matching
+and unprojection; ``process_rgbd`` extracts from one image and reads depth
+from the registered depth map; ``process_mono`` only extracts.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from ..ops import image as image_ops
 from ..ops import lie
 from ..ops import stereo as stereo_ops
 from ..utils.config import SystemConfig
-from .extractor import extract_from_pyramid_pair
+from .extractor import extract_from_pyramid, extract_from_pyramid_pair
 from .frame import Features, FrameState
 
 
@@ -90,5 +90,67 @@ def process_stereo(img_left, img_right, config: SystemConfig, timestamp=0.0):
         features=feat_l,
         T_cw=torch.eye(4, dtype=torch.float32, device=dev),
         point_cam=point_cam,
-        timestamp=torch.tensor(timestamp, dtype=torch.float32, device=dev),
+        timestamp=torch.full((), timestamp, dtype=torch.float32, device=dev),
+    )
+
+
+def process_rgbd(img, depth_map, config: SystemConfig, timestamp=0.0):
+    """Grayscale image + registered depth map ``[H, W]`` tensors ->
+    :class:`FrameState` (GrabImageRGBD + ComputeStereoFromRGBD, reference:
+    src/tracking.cpp:202-230, src/orbframe.cpp:707-728).  The depth is read
+    at the raw (distorted) keypoint pixel, truncated to int and clipped; the
+    keypoints are then undistorted and a virtual right coordinate
+    ``u_right = x - bf / d`` is set from the undistorted x, after which the
+    frame is a stereo frame to the rest of the system."""
+    cam = config.camera
+    orb = config.orb
+    dev = img.device
+
+    levels = image_ops.build_pyramid(img.to(torch.float32), orb.n_levels, orb.scale_factor)
+    feats = _bbox_filter(extract_from_pyramid(levels, orb), config)
+    raw_xy = feats.xy
+    feats = _undistort_features(feats, config)
+
+    # DepthMapFactor (reference: src/tracking.cpp:136-149): metric = raw /
+    # factor, a factor near 0 means the map is already metric
+    f = float(config.tracking.depth_map_factor)
+    scale = 1.0 if abs(f) < 1e-5 else 1.0 / f
+    dm = depth_map.to(torch.float32) * scale
+    h, w = dm.shape
+    u = torch.clamp(raw_xy[:, 0].to(torch.int32), 0, w - 1).long()
+    v = torch.clamp(raw_xy[:, 1].to(torch.int32), 0, h - 1).long()
+    d = dm[v, u]
+    ok = (d > 0) & feats.valid
+    minus_one = torch.full_like(d, -1.0)
+    depth = torch.where(ok, d, minus_one)
+    # a tensor dividend: ``float / tensor`` is a reciprocal and a multiply
+    bf = torch.full((), cam.bf, dtype=torch.float32, device=dev)
+    u_right = torch.where(ok, feats.xy[:, 0] - bf / torch.clamp(d, min=1e-6), minus_one)
+    feats = feats._replace(u_right=u_right, depth=depth)
+
+    point_cam = lie.backproject(
+        feats.xy, torch.clamp(depth, min=1e-6), cam.fx, cam.fy, cam.cx, cam.cy
+    )
+    point_cam = torch.where(depth[:, None] > 0, point_cam, torch.zeros_like(point_cam))
+    return FrameState(
+        features=feats,
+        T_cw=torch.eye(4, dtype=torch.float32, device=dev),
+        point_cam=point_cam,
+        timestamp=torch.full((), timestamp, dtype=torch.float32, device=dev),
+    )
+
+
+def process_mono(img, config: SystemConfig, timestamp=0.0):
+    """Grayscale image ``[H, W]`` tensor -> :class:`FrameState`: extraction,
+    the bounding-box filter and undistortion, no depth (GrabImageMonocular,
+    reference: src/tracking.cpp:233-260)."""
+    orb = config.orb
+    dev = img.device
+    levels = image_ops.build_pyramid(img.to(torch.float32), orb.n_levels, orb.scale_factor)
+    feats = _undistort_features(_bbox_filter(extract_from_pyramid(levels, orb), config), config)
+    return FrameState(
+        features=feats,
+        T_cw=torch.eye(4, dtype=torch.float32, device=dev),
+        point_cam=torch.zeros((feats.capacity, 3), dtype=torch.float32, device=dev),
+        timestamp=torch.full((), timestamp, dtype=torch.float32, device=dev),
     )

@@ -16,7 +16,7 @@ import torch
 from ..ops import lie
 from ..ops.hamming import MAX_DIST, TH_LOW, hamming_matrix
 from ..ops.indexing import (
-    row, scatter_add, scatter_max, scatter_min, scatter_set, set_row, topk_stable,
+    fill_at, row, scatter_add, scatter_max, scatter_min, scatter_set, set_row, topk_stable,
 )
 from ..utils.config import SystemConfig
 from .map_state import MapState, point_observation_counts, recompute_covisibility
@@ -119,7 +119,7 @@ def _fuse_core(kf_obs_point, pt_valid, counts, m: MapState, target_slot,
     kf_obs_point = set_row(kf_obs_point, target_slot, new_row)
     counts = scatter_add(counts, torch.where(is_new_bind, slots, P - 1),
                          is_new_bind.to(torch.int32))
-    counts[P - 1] = 0     # in place on the fresh tensor of each step below
+    fill_at(counts, P - 1, 0)     # in place on the fresh tensor of each step below
 
     # --- merges: loser -> winner indirection ------------------------------
     exist_c = existing.clamp(0, P - 1).to(torch.int64)
@@ -129,7 +129,7 @@ def _fuse_core(kf_obs_point, pt_valid, counts, m: MapState, target_slot,
     replace = scatter_set(torch.arange(P, device=dev),
                           torch.where(is_merge, loser.clamp(0, P - 1), P - 1),
                           torch.where(is_merge, winner, P - 1))
-    replace[P - 1] = P - 1
+    fill_at(replace, P - 1, P - 1)
     # short chains (a loser that also wins elsewhere) resolve by a second
     # application
     replace = replace[replace]
@@ -138,12 +138,12 @@ def _fuse_core(kf_obs_point, pt_valid, counts, m: MapState, target_slot,
                           kf_obs_point)
     dead = scatter_set(torch.zeros((P,), dtype=torch.bool, device=dev),
                        torch.where(loser >= 0, loser.clamp(0, P - 1), P - 1), loser >= 0)
-    dead[P - 1] = False
+    fill_at(dead, P - 1, False)
     # the winner absorbs the loser's observations (Replace merges counts;
     # the stage-end recount re-derives exact counts)
     loser_n = torch.where(loser >= 0, counts[loser.clamp(0, P - 1)], 0)
     counts = scatter_add(counts, torch.where(winner >= 0, winner.clamp(0, P - 1), P - 1), loser_n)
-    counts[P - 1] = 0
+    fill_at(counts, P - 1, 0)
     counts = torch.where(dead, 0, counts)
     return new_obs, pt_valid & ~dead, counts
 

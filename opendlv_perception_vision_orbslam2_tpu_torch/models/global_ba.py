@@ -16,7 +16,9 @@ import torch
 
 from ..ops import lie
 from ..optim.ba import BAProblem
-from ..optim.gba import gba_init_carry, global_bundle_adjust, global_bundle_adjust_chunk
+from ..optim.gba import (
+    edge_sums, gba_core, gba_init_carry, global_bundle_adjust_chunk,
+)
 from ..utils.config import SystemConfig
 from .map_state import MapState, recompute_covisibility
 
@@ -46,13 +48,13 @@ def extract_global_ba(m: MapState, scale_factor: float = 1.2) -> BAProblem:
 
 
 def run_global_ba(m: MapState, config: SystemConfig, n_outer: int = 10,
-                  cg_iters: int = 40) -> MapState:
-    """The blocking solve: refine the whole map and write it back."""
+                  cg_iters: int = 40, hold_cheirality: bool = False) -> MapState:
+    """The blocking solve: refine the whole map and write it back
+    (``hold_cheirality``: see ``optim/gba.py::_outer``)."""
     cam = config.camera
     prob = extract_global_ba(m, config.orb.scale_factor)
-    T_opt, pts, _ = global_bundle_adjust(prob, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
-                                         bf=cam.bf, n_outer=n_outer, cg_iters=cg_iters,
-                                         fix_first_pose=True)
+    T_opt, pts, _ = gba_core(prob, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf,
+                             n_outer=n_outer, cg_iters=cg_iters, hold_cheirality=hold_cheirality)
     m = m._replace(kf_T_cw=torch.where(m.kf_valid[:, None, None], T_opt, m.kf_T_cw),
                    pt_pos=torch.where(m.pt_valid[:, None], pts, m.pt_pos))
     return m._replace(covis=recompute_covisibility(m))
@@ -100,6 +102,7 @@ class IncrementalGBA:
                  cg_iters: int = 40):
         self.config = config
         self.prob = extract_global_ba(m, config.orb.scale_factor)
+        self.sums = edge_sums(self.prob)      # the chunks' summation order, read once
         self.carry = gba_init_carry(self.prob)
         self.iters_left = n_outer_total
         self.cg_iters = cg_iters
@@ -114,7 +117,7 @@ class IncrementalGBA:
         cam = self.config.camera
         self.carry = global_bundle_adjust_chunk(
             self.prob, self.carry, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf,
-            n_outer=1, cg_iters=self.cg_iters)
+            n_outer=1, cg_iters=self.cg_iters, sums=self.sums)
         self.iters_left -= 1
         return self.iters_left <= 0
 

@@ -15,7 +15,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.indexing import row, scatter_add, scatter_min, scatter_set, set_row, topk_stable
+from ..ops.indexing import (
+    fill_at, row, scatter_add, scatter_min, scatter_set, set_row, topk_stable,
+)
 from ..optim.ba_grid import GridBAProblem, bundle_adjust_grid
 from ..utils.config import SystemConfig
 from .map_state import MapState, recompute_covisibility, refresh_windowed
@@ -61,7 +63,7 @@ def extract_local_ba_grid(m: MapState, center_slot, ko: int = KO_DEFAULT,
     b_ok = m.kf_feat_valid[local_slots] & (binds >= 0) & local_ok[:, None]
     pt_in = scatter_set(torch.zeros((P,), dtype=torch.bool, device=dev),
                         torch.where(b_ok, binds, P - 1).reshape(-1), b_ok.reshape(-1))
-    pt_in[P - 1] = False
+    fill_at(pt_in, P - 1, False)
     pt_in = pt_in & m.pt_valid
     rank = torch.cumsum(pt_in.to(torch.int64), 0) - 1
     pt_g2l = torch.where(pt_in & (rank < pl), rank, -1)
@@ -114,8 +116,7 @@ def extract_local_ba_grid(m: MapState, center_slot, ko: int = KO_DEFAULT,
     o_ur = torch.where(o_valid, g_ur[w_rows, obs_f], -1.0)
     o_sigma2 = torch.where(o_valid, sigma2[w_rows, obs_f], 1.0)
 
-    pose_free = local_ok.clone()
-    pose_free[0] = False                      # the oldest anchors the gauge
+    pose_free = fill_at(local_ok.clone(), 0, False)     # the oldest anchors the gauge
     prob = GridBAProblem(
         T_all=m.kf_T_cw[all_slots], kf_valid=all_ok, pose_free=pose_free,
         pts=pts_local, pt_valid=pt_local_valid, g_pt=g_pt.clamp(-1, pl - 1).to(torch.int32),
@@ -181,5 +182,5 @@ def local_mapping_step(m: MapState, center_slot, config: SystemConfig,
     gpt = ext.local_pt_slots[ext.prob.g_pt.clamp(0, pl - 1).long()]     # [KW, F]
     counts = scatter_add(counts, torch.where(bad & (gpt >= 0), gpt.clamp(0, P - 1), P - 1).reshape(-1),
                          -bad.to(torch.int32).reshape(-1))
-    counts[P - 1] = 0
+    fill_at(counts, P - 1, 0)
     return m, counts.clamp(min=0)

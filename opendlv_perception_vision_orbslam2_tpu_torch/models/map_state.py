@@ -22,7 +22,7 @@ import torch
 from ..ops import lie
 from ..ops.hamming import popcount32
 from ..ops.indexing import (
-    as_like, row, scatter_add, scatter_max, scatter_min, scatter_set, set_row,
+    as_like, fill_at, row, scatter_add, scatter_max, scatter_min, scatter_set, set_row,
 )
 from .frame import FrameState
 
@@ -222,7 +222,7 @@ def covis_update_row(m: MapState, kf_slot) -> MapState:
     g2l = torch.full((P,), F, dtype=torch.int64, device=dev)
     g2l = scatter_min(g2l, torch.where(row_bound, row_binds, P - 1),
                       torch.where(row_bound, torch.arange(F, device=dev), F))
-    g2l[P - 1] = F        # in place on the fresh tensor
+    fill_at(g2l, P - 1, F)        # in place on the fresh tensor
     loc = torch.where(bound, g2l[m.kf_obs_point.clamp(0, P - 1).long()], F)   # [K, F]
     rows = torch.arange(K, device=dev)[:, None].expand(K, F)
     seen = torch.zeros((K, F + 1), dtype=torch.bool, device=dev)
@@ -250,8 +250,7 @@ def _alloc_point_slots(pt_valid, want_mask):
     entry takes the rank-i free slot; -1 if out of capacity or not wanted.
     Slot ``P-1`` is the reserved scatter dump, never allocated."""
     P = pt_valid.shape[0]
-    allocatable = ~pt_valid
-    allocatable[P - 1] = False        # ``~`` made a new tensor
+    allocatable = fill_at(~pt_valid, P - 1, False)     # ``~`` made a new tensor
     free_order = torch.argsort((~allocatable).to(torch.int32), stable=True)
     n_free = allocatable.sum()
     want_rank = torch.cumsum(want_mask.to(torch.int64), 0) - 1
@@ -358,8 +357,7 @@ def point_observation_counts(m: MapState):
     tgt = torch.where(bound, m.kf_obs_point, P - 1).reshape(-1)
     counts = torch.zeros((P,), dtype=torch.int32, device=tgt.device)
     counts = scatter_add(counts, tgt, bound.reshape(-1).to(torch.int32))
-    counts[P - 1] = 0     # a fresh tensor: nothing else holds it
-    return counts
+    return fill_at(counts, P - 1, 0)     # a fresh tensor: nothing else holds it
 
 
 def refresh_windowed(m: MapState, pt_slots, kf_slots) -> MapState:
@@ -553,7 +551,7 @@ def cull_keyframes(m: MapState, protect_slot, update_covis: bool = True,
         & (row(m.covis, protect_slot) > 0)
     )
     redundant = set_row(redundant, protect_slot, False)
-    redundant[0] = False
+    fill_at(redundant, 0, False)
     victim = torch.argmax(redundant.to(torch.int32))
     do_cull = torch.any(redundant)
     none = torch.full((F,), -1, dtype=torch.int32, device=dev)

@@ -1,4 +1,4 @@
-"""Stereo SLAM: tracking against the map + the keyframe mapping stage.
+"""Stereo and RGB-D SLAM: tracking against the map + the keyframe mapping stage.
 
 Counterpart of the reference package's ``models/slam.py`` (Tracking::Track
 -> TrackLocalMap -> NeedNewKeyFrame -> CreateNewKeyFrame, and the Mapping
@@ -32,13 +32,13 @@ import torch
 from ..ops import lie, matching
 from ..ops.hamming import MAX_DIST, TH_HIGH, hamming_matrix
 from ..ops.indexing import (
-    row, scatter_add, scatter_max, scatter_set, set_row, topk_stable,
+    fill_at, row, scatter_add, scatter_max, scatter_set, set_row, topk_stable,
 )
 from ..optim.pose_opt import PoseObs, pose_optimize, robust_pose_estimate
 from ..utils.config import SystemConfig
 from ..utils.host import HostFetch
 from .frame import FrameState, features_scale_sigma2
-from .frontend import process_stereo
+from .frontend import process_rgbd, process_stereo
 from . import vocabulary as voc
 from .fusion import run_fusion
 from .global_ba import IncrementalGBA
@@ -74,8 +74,7 @@ def _mark(P, slots, ok):
     """``[P]`` bool: True at ``slots`` where ``ok`` (dump slot P-1 cleared)."""
     out = scatter_set(torch.zeros((P,), dtype=torch.bool, device=slots.device),
                       torch.where(ok, slots, P - 1).reshape(-1), ok.reshape(-1))
-    out[P - 1] = False
-    return out
+    return fill_at(out, P - 1, False)
 
 
 def _motion_model_match(m: MapState, last_frame: FrameState, last_bindings, T_pred,
@@ -197,7 +196,7 @@ def _search_local_points(m: MapState, local_pts, bindings, T_cw, cur_frame: Fram
                                torch.where(pm.valid, slots, -1))
     vis_delta = scatter_add(torch.zeros((P,), dtype=torch.int32, device=dev),
                             torch.where(visible, slots, P - 1), visible.to(torch.int32))
-    vis_delta[P - 1] = 0
+    fill_at(vis_delta, P - 1, 0)
     return new_bindings, vis_delta
 
 
@@ -242,7 +241,7 @@ def track_frame_with_map(m: MapState, last_frame: FrameState, last_bindings, T_c
     found_delta = scatter_add(torch.zeros((P,), dtype=torch.int32, device=dev),
                               torch.where(bindings >= 0, bindings, P - 1),
                               (bindings >= 0).to(torch.int32))
-    found_delta[P - 1] = 0
+    fill_at(found_delta, P - 1, 0)
 
     # keyframe-decision stats (NeedNewKeyFrame, reference:
     # src/tracking.cpp:832-866)
@@ -484,6 +483,7 @@ class StereoSlam:
         self._lost_streak = 0
         self._motion_prior = None
         self.loops_closed = 0
+        self._staging: dict = {}    # eye -> pinned image buffers in use (``_to_device``)
         self.reset()
 
     # ---- state --------------------------------------------------------------
@@ -947,21 +947,45 @@ class StereoSlam:
 
     # ---- per frame ------------------------------------------------------------
 
-    def _to_device(self, img):
-        if isinstance(img, np.ndarray):
-            img = torch.from_numpy(np.ascontiguousarray(img))
-        return img.to(device=self.device, dtype=torch.float32)
+    def _to_device(self, img, eye: int = 0):
+        """An image as a float32 tensor on the device.  A numpy image bound
+        for the card goes through a pinned staging buffer and an
+        asynchronous copy (a copy from pageable memory waits for the
+        stream); each eye has two buffers used in turn, and a buffer is
+        refilled only once the event behind its last copy has completed."""
+        if not isinstance(img, np.ndarray):
+            return img.to(device=self.device, dtype=torch.float32)
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(img)).to(torch.float32)
+        ring = self._staging.setdefault(eye, [])
+        if len(ring) < 2 or ring[0][0].shape != img.shape:
+            buf = torch.empty(img.shape, dtype=torch.float32, pin_memory=True)
+        else:
+            buf, done = ring.pop(0)
+            done.synchronize()
+        buf.numpy()[...] = img
+        out = buf.to(self.device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        ring.append((buf, done))
+        del ring[:-2]
+        return out
 
     def process(self, img_left, img_right, timestamp: float = 0.0):
         """Track one stereo pair (numpy or tensor ``[H, W]``); returns the
         world->camera pose, or None while stereo initialization waits."""
-        cur = process_stereo(self._to_device(img_left), self._to_device(img_right),
+        cur = process_stereo(self._to_device(img_left, 0), self._to_device(img_right, 1),
                              self.config, timestamp)
         return self._step(cur)
 
     def process_rgbd(self, img, depth_map, timestamp: float = 0.0):
-        raise NotImplementedError(
-            "RGB-D input is not ported yet (ROADMAP.md queue 1 item 7)")
+        """Track one grayscale image + registered depth map (numpy or tensor
+        ``[H, W]``; GrabImageRGBD, reference: src/tracking.cpp:202-230).
+        Past the front end an RGB-D frame carries the same ``u_right`` and
+        depth as a stereo frame, so the rest is the stereo ``_step``."""
+        cur = process_rgbd(self._to_device(img, 0), self._to_device(depth_map, 1),
+                           self.config, timestamp)
+        return self._step(cur)
 
     def _need_new_keyframe(self, tracked, n_tracked_close, n_untracked_close) -> bool:
         """NeedNewKeyFrame (reference: src/tracking.cpp:812-896), with the

@@ -167,6 +167,17 @@ def _triangulate_pair(m: MapState, kf1, kf2, config: SystemConfig, enabled,
     return m, counts
 
 
+def triangulate_with_neighbor(m: MapState, kf1, kf2, config: SystemConfig) -> MapState:
+    """Triangulate one keyframe pair (slots as host or 0-d integers) and
+    rebuild the covisibility (the reference package's single-pair entry
+    point)."""
+    dev = m.kf_T_cw.device
+    kf1, kf2 = (k if isinstance(k, torch.Tensor)
+                else torch.full((), k, dtype=torch.int64, device=dev) for k in (kf1, kf2))
+    m = _triangulate_pair(m, kf1, kf2, config, torch.ones((), dtype=torch.bool, device=dev))
+    return m._replace(covis=recompute_covisibility(m))
+
+
 def create_new_map_points(m: MapState, new_kf_slot, config: SystemConfig,
                           n_neighbors: int = N_TRI_NEIGHBORS,
                           update_covis: bool = True, counts=None):

@@ -13,6 +13,8 @@ returns a new tensor, so a map snapshot held elsewhere stays intact.
   writes (``P-1``, ``K-1``, ``PL-1``) rely on.
 - ``lax.top_k`` -> :func:`topk_stable`: on ties the lower index comes first
   (``torch.topk`` promises no order on CUDA).
+- ``x[i] = scalar`` on a CUDA tensor copies a host scalar and waits for the
+  stream; :func:`fill_at` writes it with a device fill instead.
 """
 
 from __future__ import annotations
@@ -30,6 +32,13 @@ def as_like(v, like):
     if isinstance(v, torch.Tensor):
         return v.to(dtype=like.dtype, device=like.device)
     return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
+def fill_at(x, i: int, value):
+    """Set ``x[i]`` (dim 0, a host integer) to the Python scalar ``value`` in
+    place by a device fill, with no host->device copy; returns ``x``."""
+    x.select(0, i).fill_(value)
+    return x
 
 
 def row(x, i):

@@ -112,7 +112,7 @@ def make_T(R, t):
     top = torch.cat([R, t[..., :, None]], dim=-1)
     # built on the device: a host tensor here would cost a synced copy
     bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 3] = 1.0
+    bottom.select(-1, 3).fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -133,6 +133,30 @@ def search_by_bow(desc_a, node_a, valid_a, angle_a, desc_b, node_b, valid_b, ang
     return m.dst_idx, m.valid
 
 
+def search_for_initialization(feats_a, feats_b, *, window: float = 100.0,
+                              nn_ratio: float = 0.9, max_dist: int = TH_LOW,
+                              check_rotation: bool = True):
+    """Window-gated matching for monocular initialization
+    (SearchForInitialization, reference: src/orbmatcher.cpp:411-529): only
+    level-0 keypoints, a +-``window`` px search box, the best/second ratio
+    0.9 and the rotation-consistency histogram, one a per b.  Returns
+    ``(b_idx [A] int64, valid [A])``."""
+    d_uv = feats_b.xy[None, :, :] - feats_a.xy[:, None, :]
+    within = torch.maximum(torch.abs(d_uv[..., 0]), torch.abs(d_uv[..., 1])) <= window
+    lvl0 = (feats_a.octave[:, None] == 0) & (feats_b.octave[None, :] == 0)
+    gate = within & lvl0 & feats_a.valid[:, None] & feats_b.valid[None, :]
+    big = MAX_DIST + 1
+    d = torch.where(gate, hamming_matrix(feats_a.desc, feats_b.desc), big)
+    best, best_d, second = _best_and_second(d, big)
+    ok = (best_d <= max_dist) & (
+        best_d.to(torch.float32) <= nn_ratio * second.to(torch.float32))
+    if check_rotation:
+        ok = rotation_consistency_mask(feats_a.angle, feats_b.angle, best, ok)
+    m = resolve_duplicate_targets(ProjectionMatches(dst_idx=best, dist=best_d, valid=ok),
+                                  feats_b.xy.shape[0])
+    return m.dst_idx, m.valid
+
+
 def resolve_duplicate_targets(matches: ProjectionMatches, n_dst: int):
     """Keep only the lowest-distance source per destination feature
     (scatter-min), ties broken by the lower source index."""

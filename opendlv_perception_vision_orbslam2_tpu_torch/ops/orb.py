@@ -159,7 +159,7 @@ def brief_from_blurred(blurred, angles):
     flat = blurred.reshape(blurred.shape[0], BRIEF_SIDE * BRIEF_SIDE)
     # 12-degree bin of each angle, in float32 with a true division (a tensor
     # divisor: a Python-scalar one becomes a reciprocal multiply on CUDA)
-    two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=angles.device)
+    two_pi = torch.full((), 2.0 * math.pi, dtype=torch.float32, device=angles.device)
     bins = torch.floor((angles + math.pi) / two_pi * N_ANGLE_BINS).to(torch.int64)
     idx = bin_idx[torch.remainder(bins, N_ANGLE_BINS)]          # [N, 512]
     vals = torch.take_along_dim(flat, idx, dim=1)

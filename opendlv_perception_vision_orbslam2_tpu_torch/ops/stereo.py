@@ -13,6 +13,8 @@ entries hold -1 (reference: src/orbframe.cpp:668-676).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -26,13 +28,20 @@ TH_ORB = (TH_HIGH + TH_LOW) // 2   # 75 (reference: src/orbframe.cpp:540)
 MIN_DISPARITY = 0.05  # reference clamps <=0 to 0.01; we invalidate instead
 
 
+@functools.lru_cache(maxsize=16)
+def _row_offsets(heights: tuple, device):
+    """Each level's first row in the stacked atlas, copied to ``device`` once
+    (a copy per frame would wait for the stream)."""
+    return torch.from_numpy(np.cumsum((0,) + heights[:-1]).astype(np.int32)).to(device)
+
+
 def build_atlas(levels):
     """Stack pyramid levels ``[H_l, W_l]`` into one ``[sum(H_l), W0]`` image
     (zero-extended on the right) plus per-level row offsets."""
     w0 = levels[0].shape[-1]
     padded = [torch.nn.functional.pad(im, (0, w0 - im.shape[-1])) for im in levels]
-    offsets = np.cumsum([0] + [im.shape[-2] for im in levels[:-1]]).astype(np.int32)
-    return torch.cat(padded, dim=-2), torch.from_numpy(offsets).to(levels[0].device)
+    heights = tuple(int(im.shape[-2]) for im in levels)
+    return torch.cat(padded, dim=-2), _row_offsets(heights, levels[0].device)
 
 
 def _take(x, idx):
@@ -48,7 +57,7 @@ def stereo_match(feat_left, feat_right, atlas_left, atlas_right, row_offsets,
     uR, vR = feat_right.xy[:, 0], feat_right.xy[:, 1]
     octL, octR = feat_left.octave, feat_right.octave
 
-    sf = torch.tensor(scale_factor, dtype=torch.float32, device=dev)
+    sf = torch.full((), scale_factor, dtype=torch.float32, device=dev)
     scaleR = torch.pow(sf, octR.to(torch.float32))
     max_d = fx          # maxD = bf / baseline = fx (reference: src/orbframe.cpp:534)
     min_d = 0.0
@@ -67,7 +76,7 @@ def stereo_match(feat_left, feat_right, atlas_left, atlas_right, row_offsets,
     matched = best_d < TH_ORB
 
     # --- SAD sub-pixel refinement on the matched octave level -------------
-    inv_sf = torch.tensor(1.0 / scale_factor, dtype=torch.float32, device=dev)
+    inv_sf = torch.full((), 1.0 / scale_factor, dtype=torch.float32, device=dev)
     inv_scale_l = torch.pow(inv_sf, octL.to(torch.float32))
     su = torch.round(uL * inv_scale_l).to(torch.int32)
     sv = torch.round(vL * inv_scale_l).to(torch.int32)

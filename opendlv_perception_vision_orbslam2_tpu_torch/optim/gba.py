@@ -7,19 +7,89 @@ camera system is never formed:
 
     S v = Hpp v - W Hll^-1 W^T v
 
-evaluates as per-edge products and ``index_add`` scatters, and S is solved
-by block-Jacobi-preconditioned CG.  Levenberg-Marquardt keeps or reverts a
-step by comparing costs on the device (``torch.where``), so a chunk of
-iterations reads nothing back.  The solve is single-device; the
+evaluates as per-edge products summed per pose and per point, and S is
+solved by block-Jacobi-preconditioned CG.  Levenberg-Marquardt keeps or
+reverts a step by comparing costs on the device (``torch.where``), so a
+chunk of iterations reads nothing back.  The solve is single-device; the
 edge-sharded form of the reference package is ROADMAP.md queue 1 item 9.
+
+The per-pose and per-point sums run in an order fixed by the problem
+(:class:`EdgeSums`), so a solve gives the same bits on every run: the
+reference's ``.at[].add`` becomes ``index_add``, whose float atomics on CUDA
+add in whatever order the threads arrive.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..ops import lie
 from .ba import BAProblem, CHI2_MONO, CHI2_STEREO, _edge_chi2, _edge_residuals, _inv3x3
+
+
+class EdgeSums(NamedTuple):
+    """The fixed summation order of one problem's edges, built once per
+    problem by :func:`edge_sums` or :func:`segment_sums`.
+
+    Segments: the live edges sorted by point (``pt_order``, stable) and
+    summed segment by segment (``pt_lengths [P]``), each segment in edge
+    order: the order of the CPU's ``index_add`` and of the reference's
+    scatter on XLA:CPU, bit for bit.  The pose side is summed the same way
+    (``pose_order``, ``pose_lengths [Ko]``), or, with ``pose_block = F``,
+    by blocks: the edges come in ``[Ko, F]`` blocks, row k all on pose k
+    (``extract_global_ba``'s layout), and a pose's terms are a reshape and
+    a sum (a fixed tree order).  Edges left out of a sum carry zero weight
+    in it."""
+
+    pose_block: int
+    pose_order: torch.Tensor | None
+    pose_lengths: torch.Tensor | None
+    pt_order: torch.Tensor
+    pt_lengths: torch.Tensor
+
+
+def _segments(keys, live, n: int):
+    """The ``live`` edges sorted by ``keys`` (stable) and the length of each
+    of the ``n`` segments.  Reads the count of live edges back (one sync)."""
+    idx = torch.nonzero(live)[:, 0]
+    k = keys[idx].long()
+    order = idx[torch.argsort(k, stable=True)]
+    lengths = torch.zeros((n,), dtype=torch.int64, device=keys.device).index_add(
+        0, k, torch.ones_like(k))
+    return order, lengths
+
+
+def _live(prob: BAProblem):
+    return prob.e_valid & prob.pt_valid[prob.e_pt.long()]
+
+
+def segment_sums(prob: BAProblem) -> EdgeSums:
+    """Every sum of ``prob`` by segments (see :class:`EdgeSums`)."""
+    Ko, P = prob.T_opt.shape[0], prob.pts.shape[0]
+    live = _live(prob)
+    return EdgeSums(0, *_segments(prob.e_kf, live & (prob.e_kf < Ko), Ko),
+                    *_segments(prob.e_pt, live, P))
+
+
+def edge_sums(prob: BAProblem) -> EdgeSums:
+    """The summation order of ``prob``'s edges (see :class:`EdgeSums`).  On
+    the card the pose sums go by blocks when the edges are laid out in
+    blocks, read from ``prob.e_kf`` (one sync, as is each segment count): a
+    problem is never assumed to be blocked.  A segment there is one thread's
+    serial loop over a keyframe's edges, the slower order (PERF.md §6).  On
+    the CPU every sum goes by segments, ``index_add``'s order."""
+    Ko, P, E = prob.T_opt.shape[0], prob.pts.shape[0], prob.e_kf.shape[0]
+    if prob.e_kf.is_cuda and Ko and E % Ko == 0 and torch.equal(
+            prob.e_kf, torch.arange(Ko, dtype=prob.e_kf.dtype, device=prob.e_kf.device)
+            .repeat_interleave(E // Ko)):
+        return EdgeSums(E // Ko, None, None, *_segments(prob.e_pt, _live(prob), P))
+    return segment_sums(prob)
+
+
+def _segment_sum(x, order, lengths):
+    return torch.segment_reduce(x[order], "sum", lengths=lengths, unsafe=True)
 
 
 def _edge_terms(T_all, pts, prob: BAProblem, fx, fy, cx, cy, bf, pose_free):
@@ -43,31 +113,40 @@ def _edge_terms(T_all, pts, prob: BAProblem, fx, fy, cx, cy, bf, pose_free):
 
 
 def _robust_cost(T_opt, pts, prob: BAProblem, fx, fy, cx, cy, bf):
+    """The Huber cost over the edges in front of their camera, and those
+    edges' mask: ``(cost, active)``."""
     T_all = torch.cat([T_opt, prob.T_fix])
     r, _, _, is_stereo, behind = _edge_residuals(T_all, pts, prob, fx, fy, cx, cy, bf)
     active = prob.e_valid & prob.pt_valid[prob.e_pt.long()] & ~behind
     chi2 = _edge_chi2(r, prob.e_sigma2, is_stereo)
     d2 = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
     c = torch.where(chi2 <= d2, chi2, 2.0 * torch.sqrt(d2 * chi2) - d2)
-    return torch.sum(torch.where(active, c, torch.zeros_like(c)))
+    cost = torch.sum(torch.where(active, c, torch.zeros_like(c)))
+    return cost, active
 
 
-def _outer(carry, prob: BAProblem, pose_free, fx, fy, cx, cy, bf, cg_iters: int):
+def _outer(carry, prob: BAProblem, sums: EdgeSums, pose_free, fx, fy, cx, cy, bf,
+           cg_iters: int, hold_cheirality: bool = False):
     """One LM iteration with a CG inner solve; ``carry = (T_opt, pts, lam,
-    cost)``."""
+    cost)``.  With ``hold_cheirality`` a step that puts a point behind a
+    camera that saw it in front is refused, whatever the cost says (the cost
+    leaves such edges out)."""
     T_opt, pts, lam, prev_cost = carry
     Ko, P = T_opt.shape[0], pts.shape[0]
     dt, dev = T_opt.dtype, T_opt.device
     T_all = torch.cat([T_opt, prob.T_fix])
-    r, Jp, Jl, row_w, kf_idx, _ = _edge_terms(T_all, pts, prob, fx, fy, cx, cy, bf, pose_free)
+    r, Jp, Jl, row_w, kf_idx, active = _edge_terms(T_all, pts, prob, fx, fy, cx, cy, bf,
+                                                    pose_free)
     e_pt = prob.e_pt.long()
     pt_ok = prob.pt_valid[:, None]
 
-    def to_poses(x):
-        return torch.zeros((Ko,) + x.shape[1:], dtype=dt, device=dev).index_add(0, kf_idx, x)
+    def to_poses(x):      # [E, ...] -> [Ko, ...]; terms off the free poses are 0
+        if sums.pose_block:
+            return x.reshape((Ko, sums.pose_block) + x.shape[1:]).sum(1)
+        return _segment_sum(x, sums.pose_order, sums.pose_lengths)
 
-    def to_points(x):
-        return torch.zeros((P,) + x.shape[1:], dtype=dt, device=dev).index_add(0, e_pt, x)
+    def to_points(x):     # [E, ...] -> [P, ...]; inactive edges' terms are 0
+        return _segment_sum(x, sums.pt_order, sums.pt_lengths)
 
     wr = row_w * r
     b_p = to_poses(-torch.einsum("eri,er->ei", Jp, wr))
@@ -79,8 +158,7 @@ def _outer(carry, prob: BAProblem, pose_free, fx, fy, cx, cy, bf, cg_iters: int)
     # the KITTI loop circuit's closure map 9.6e-4, 1.4e-4 with these blocks
     # in float64), enough to part two devices' results by as much.
     eye3 = torch.eye(3, dtype=torch.float64, device=dev)
-    Hll = torch.zeros((P, 3, 3), dtype=torch.float64, device=dev).index_add(
-        0, e_pt, torch.einsum("eri,er,erj->eij", Jl.double(), row_w.double(), Jl.double()))
+    Hll = to_points(torch.einsum("eri,er,erj->eij", Jl.double(), row_w.double(), Jl.double()))
     Hll = torch.where(prob.pt_valid[:, None, None], Hll + lam.double() * eye3, eye3)
     Hll_inv = _inv3x3(Hll).to(dt)
     Hpp = to_poses(torch.einsum("eri,er,erj->eij", Jp, row_w, Jp)) + lam * eye6
@@ -125,8 +203,10 @@ def _outer(carry, prob: BAProblem, pose_free, fx, fy, cx, cy, bf, cg_iters: int)
 
     T_new = torch.where(pose_free[:, None, None], lie.exp_se3(dx_c) @ T_opt, T_opt)
     pts_new = pts + dx_l
-    new_cost = _robust_cost(T_new, pts_new, prob, fx, fy, cx, cy, bf)
+    new_cost, active_new = _robust_cost(T_new, pts_new, prob, fx, fy, cx, cy, bf)
     accept = new_cost < prev_cost
+    if hold_cheirality:
+        accept = accept & ~torch.any(active & ~active_new)
     return (torch.where(accept, T_new, T_opt), torch.where(accept, pts_new, pts),
             torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e4),
             torch.where(accept, new_cost, prev_cost))
@@ -134,23 +214,29 @@ def _outer(carry, prob: BAProblem, pose_free, fx, fy, cx, cy, bf, cg_iters: int)
 
 def gba_core(prob: BAProblem, *, fx: float, fy: float, cx: float, cy: float, bf: float,
              n_outer: int = 10, cg_iters: int = 40, fix_first_pose: bool = True,
-             init_carry=None, return_carry: bool = False):
+             init_carry=None, return_carry: bool = False, sums: EdgeSums | None = None,
+             hold_cheirality: bool = False):
     """LM with matrix-free Schur-CG inner solves.  Returns ``(T_opt, pts,
     cost)``, or the LM carry ``(T_opt, pts, lam, cost)`` with
     ``return_carry``; ``init_carry`` resumes from one (the bounded chunks of
     the incremental GBA, the functional form of the reference's abortable
-    GBA thread, src/loopclosing.cpp:576-580, 645-750)."""
+    GBA thread, src/loopclosing.cpp:576-580, 645-750).  ``sums`` is
+    ``edge_sums(prob)``, built here when not given; ``hold_cheirality``:
+    see :func:`_outer`."""
     pose_free = prob.opt_valid
     if fix_first_pose:
         pose_free = pose_free & (torch.arange(pose_free.shape[0], device=pose_free.device) > 0)
     if init_carry is None:
         carry = (prob.T_opt, prob.pts,
                  torch.full((), 1e-4, dtype=prob.T_opt.dtype, device=prob.T_opt.device),
-                 _robust_cost(prob.T_opt, prob.pts, prob, fx, fy, cx, cy, bf))
+                 _robust_cost(prob.T_opt, prob.pts, prob, fx, fy, cx, cy, bf)[0])
     else:
         carry = init_carry
+    if sums is None:
+        sums = edge_sums(prob)
     for _ in range(n_outer):
-        carry = _outer(carry, prob, pose_free, fx, fy, cx, cy, bf, cg_iters)
+        carry = _outer(carry, prob, sums, pose_free, fx, fy, cx, cy, bf, cg_iters,
+                       hold_cheirality)
     if return_carry:
         return carry
     return carry[0], carry[1], carry[3]
@@ -166,12 +252,14 @@ def global_bundle_adjust(prob: BAProblem, *, fx: float, fy: float, cx: float, cy
 
 def global_bundle_adjust_chunk(prob: BAProblem, carry, *, fx: float, fy: float, cx: float,
                                cy: float, bf: float, n_outer: int = 1, cg_iters: int = 40,
-                               fix_first_pose: bool = True):
+                               fix_first_pose: bool = True, sums: EdgeSums | None = None):
     """``n_outer`` LM iterations from an explicit ``(T, pts, lam, cost)``
-    carry (start with :func:`gba_init_carry`); returns the new carry."""
+    carry (start with :func:`gba_init_carry`); returns the new carry.  Pass
+    ``sums = edge_sums(prob)`` to chunks of one problem: building it reads
+    back to the host."""
     return gba_core(prob, fx=fx, fy=fy, cx=cx, cy=cy, bf=bf, n_outer=n_outer,
                     cg_iters=cg_iters, fix_first_pose=fix_first_pose, init_carry=carry,
-                    return_carry=True)
+                    return_carry=True, sums=sums)
 
 
 def gba_init_carry(prob: BAProblem):

@@ -4,9 +4,10 @@ The system has no learned weights: its state is the numpy-built constant
 tables (rebuilt identically on both sides), the tracker state
 ``TrackState(T_cw, velocity, last_frame: FrameState, n_inliers)``, the map
 ``MapState``, the place-recognition state ``Vocabulary`` /
-``KeyFrameDatabase`` and the loop slice's solver inputs ``BAProblem``,
+``KeyFrameDatabase``, the loop slice's solver inputs ``BAProblem``,
 ``PoseGraphProblem``, ``LoopMatch`` and the GBA carry ``(T, pts, lam,
-cost)`` (a plain tuple).  These two functions move that state across as
+cost)`` (a plain tuple), and the monocular initializer's ``InitResult`` (a
+monocular map is a ``MapState`` like any other).  These two functions move that state across as
 numpy arrays, so a test can start the port from the reference's state and
 compare step by step.
 """
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..models.frame import Features, FrameState
+from ..models.initializer import InitResult
 from ..models.kfdb import KeyFrameDatabase
 from ..models.loop_closing import LoopMatch
 from ..models.map_state import MapState
@@ -27,7 +29,7 @@ from ..optim.pose_graph import PoseGraphProblem
 
 _TYPES = {cls.__name__: cls for cls in (Features, FrameState, TrackState, MapState,
                                         Vocabulary, KeyFrameDatabase, BAProblem,
-                                        PoseGraphProblem, LoopMatch)}
+                                        PoseGraphProblem, LoopMatch, InitResult)}
 _DESC_FIELDS = {"Features": ("desc",), "MapState": ("kf_desc", "pt_desc"),
                 "Vocabulary": ("node_desc",)}
 
@@ -35,7 +37,7 @@ _DESC_FIELDS = {"Features": ("desc",), "MapState": ("kf_desc", "pt_desc"),
 def from_jax_numpy(tree, device="cpu"):
     """Reference-package ``Features`` / ``FrameState`` / ``TrackState`` /
     ``MapState`` / ``Vocabulary`` / ``KeyFrameDatabase`` / ``BAProblem`` /
-    ``PoseGraphProblem`` / ``LoopMatch`` or a plain tuple of arrays (numpy or
+    ``PoseGraphProblem`` / ``LoopMatch`` / ``InitResult`` or a plain tuple of arrays (numpy or
     array-like leaves, None passes through) -> the port's NamedTuples of
     tensors on ``device``.  ``uint32``
     leaves (descriptors) become the ``int32`` tensors with the same bits; a

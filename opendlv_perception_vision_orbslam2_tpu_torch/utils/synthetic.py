@@ -1,10 +1,11 @@
-"""Synthetic stereo world in numpy: rendered corner sprites + ground truth.
+"""Synthetic world in numpy: rendered corner sprites, depth maps + ground truth.
 
-Counterpart of the stereo parts of the reference package's
-``utils/synthetic.py``: a random 3-D point cloud rendered as textured square
-sprites with bilinear sub-pixel splatting, so the whole front end and the
-tracker run with known ground truth and measurable ATE.  Rendering stays on
-the host in float32, so frames are deterministic and need no device.
+Counterpart of the reference package's ``utils/synthetic.py``: a random 3-D
+point cloud rendered as textured square sprites with bilinear sub-pixel
+splatting (and, for RGB-D, a registered depth map), so the whole front end
+and the tracker run with known ground truth and measurable ATE.  Rendering
+stays on the host in float32, so frames are deterministic and need no
+device.
 """
 
 from __future__ import annotations
@@ -79,12 +80,16 @@ def straight_trajectory(n_frames: int, step: float = 0.35,
     return np.stack(poses)
 
 
-def render_view(T_cw, world: SyntheticWorld, height: int, width: int,
-                fx: float, fy: float, cx: float, cy: float):
-    """Render one grayscale view [H, W] float32 with bilinear sub-pixel splats
-    (``np.add.at`` accumulates overlapping sprites)."""
+def _sprite_radius(world: SyntheticWorld) -> int:
+    return (int(round(world.patterns.shape[1] ** 0.5)) - 1) // 2
+
+
+def _project_world(T_cw, world: SyntheticWorld, height: int, width: int,
+                   fx: float, fy: float, cx: float, cy: float):
+    """``(u, v, z, visible)`` of every world point: pixel coords, camera-frame
+    depth, and whether its sprite lies inside the image."""
     T_cw = np.asarray(T_cw, np.float32)
-    r = (int(round(world.patterns.shape[1] ** 0.5)) - 1) // 2
+    r = _sprite_radius(world)
     R, t = T_cw[:3, :3], T_cw[:3, 3]
     pts_cam = (world.points @ R.T + t).astype(np.float32)
     z = pts_cam[:, 2]
@@ -96,6 +101,15 @@ def render_view(T_cw, world: SyntheticWorld, height: int, width: int,
     v = ((np.float32(fy) * pts_cam[:, 1]).astype(np.float64) * inv_z + cy).astype(np.float32)
     visible = (z > 0.5) & (u > r + 1) & (u < width - r - 2) \
         & (v > r + 1) & (v < height - r - 2)
+    return u, v, z, visible
+
+
+def render_view(T_cw, world: SyntheticWorld, height: int, width: int,
+                fx: float, fy: float, cx: float, cy: float):
+    """Render one grayscale view [H, W] float32 with bilinear sub-pixel splats
+    (``np.add.at`` accumulates overlapping sprites)."""
+    r = _sprite_radius(world)
+    u, v, _, visible = _project_world(T_cw, world, height, width, fx, fy, cx, cy)
     u, v, pat = u[visible], v[visible], world.patterns[visible]
 
     u0 = np.floor(u).astype(np.int64)
@@ -136,6 +150,42 @@ def render_stereo_sequence(config: SystemConfig, n_frames: int = 30,
     lefts = np.stack([view(T) for T in poses])
     rights = np.stack([view(T_rl @ T) for T in poses])
     return lefts, rights, poses, world
+
+
+def render_depth_map(T_cw, world: SyntheticWorld, height: int, width: int,
+                     fx: float, fy: float, cx: float, cy: float):
+    """Per-pixel depth map [H, W] float32 for the RGB-D fixture, 0 where
+    there is no measurement (the d > 0 rule of ComputeStereoFromRGBD,
+    reference: src/orbframe.cpp:707-728).  Each visible point stamps its
+    camera-frame z over its sprite's footprint plus a one-pixel rim, so
+    every FAST corner of the gray render has a depth sample; the nearest
+    depth wins where footprints overlap (out-of-image pixels are dropped,
+    then ``np.minimum.at``)."""
+    r = _sprite_radius(world)
+    u, v, z, visible = _project_world(T_cw, world, height, width, fx, fy, cx, cy)
+    dy, dx = np.mgrid[-r - 1: r + 2, -r - 1: r + 2]
+    ys = np.round(v).astype(np.int64)[:, None] + dy.reshape(-1)[None, :]
+    xs = np.round(u).astype(np.int64)[:, None] + dx.reshape(-1)[None, :]
+    big = np.float32(1e9)
+    stamp = np.broadcast_to(np.where(visible, z, big)[:, None], ys.shape)
+    inside = (ys >= 0) & (ys < height) & (xs >= 0) & (xs < width)
+    depth = np.full((height, width), big, np.float32)
+    np.minimum.at(depth, (ys[inside], xs[inside]), stamp[inside])
+    return np.where(depth >= big, np.float32(0.0), depth)
+
+
+def render_rgbd_sequence(config: SystemConfig, n_frames: int = 30, n_points: int = 600,
+                         seed: int = 0, step: float = 0.35, yaw_rate: float = 0.0):
+    """Returns (imgs [N,H,W], depth_maps [N,H,W], T_cw_gt [N,4,4], world), all
+    numpy float32: the left eye of :func:`render_stereo_sequence` with its
+    depth maps."""
+    cam = config.camera
+    world = make_world(n_points, seed)
+    poses = straight_trajectory(n_frames, step, yaw_rate)
+    args = (world, cam.height, cam.width, cam.fx, cam.fy, cam.cx, cam.cy)
+    grays = np.stack([render_view(T, *args) for T in poses])
+    depths = np.stack([render_depth_map(T, *args) for T in poses])
+    return grays, depths, poses, world
 
 
 def circular_trajectory(n_frames: int, radius: float = 15.0, laps: float = 1.0):

@@ -484,3 +484,96 @@ def test_gba_chunk_on_card_equals_cpu():
     assert dt < 1e-3 and dr < 1e-3
     cost0 = float(gba.gba_core(prob, **cam, n_outer=0)[2])
     assert cost_ref < 0.5 * cost0
+
+
+# ---- the RGB-D and mono slice: one-eye kernel cases, deterministic GBA sums, the
+# repaired host syncs ------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_one_eye_kernels_equal_plain_on_card():
+    """The RGB-D and monocular front ends' kernel cases at KITTI size: one
+    ``fast_nms_pyramid`` launch over the 8 levels of one eye, and one ORB
+    atlas gather (N = 2000, and 2048 at the monocular initialization
+    budget), bit for bit; no SAD gather."""
+    _require_cuda()
+    import chip_smoke
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils.config import SystemConfig
+
+    cfg = SystemConfig()
+    cam = cfg.camera
+    grays, depths, _, _ = synthetic.render_rgbd_sequence(cfg, n_frames=1, n_points=900, seed=0)
+    levels, th, orb_job, mono_job = chip_smoke.record_one_eye(
+        cfg, torch.from_numpy(grays[0]).cuda(), torch.from_numpy(depths[0]).cuda())
+    assert len(levels) == 8 and levels[0].shape == (1, cam.height, cam.width)
+    for t in (0.0, th, 20.0):
+        before = fast_kernel.fast_nms_pyramid.launches
+        maps = fast_kernel.fast_nms_pyramid(levels, t)
+        assert fast_kernel.fast_nms_pyramid.launches == before + 1
+        for lvl, (m, lv) in enumerate(zip(maps, levels)):
+            assert torch.equal(m, fast_kernel.fast_nms_plain(lv, t)), f"level {lvl} th {t}"
+    assert orb_job[1].shape[0] == 2000 and mono_job[1].shape[0] == 2048
+    for job in (orb_job, mono_job):
+        assert torch.equal(gather_kernel.gather_patches(*job),
+                           gather_kernel.gather_patches_plain(*job))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["blocked", "general"])
+def test_gba_chunk_twice_bit_equal_on_card(layout):
+    """The GBA's fixed-order sums: one chunk run twice on the card gives the
+    same bits, with the pose sums by blocks (the blocked layout) or by
+    segments (the edges shuffled)."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim import gba
+
+    prob, cam = _ba_problem()
+    if layout == "general":
+        perm = torch.from_numpy(np.random.default_rng(0).permutation(prob.e_kf.shape[0]))
+        prob = prob._replace(**{f: getattr(prob, f)[perm] for f in prob._fields
+                                if f.startswith("e_")})
+    cprob = _to(prob, "cuda")
+    sums = gba.edge_sums(cprob)
+    assert sums.pose_block == (600 if layout == "blocked" else 0)
+    runs = [gba.global_bundle_adjust_chunk(cprob, gba.gba_init_carry(cprob), **cam, sums=sums)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_repaired_sites_make_no_host_sync_on_card():
+    """One SLAM frame's device programs on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: the image upload, the front
+    end, the keyframe insert and the mapping stage (point allocation,
+    fusion, local BA and keyframe culling write their dump slots by device
+    fills) raise on any host sync."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as slam_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.models.frontend import process_stereo
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic
+
+    cfg = _slam_cfg()
+    lefts, rights, _, _ = synthetic.render_stereo_sequence(cfg, n_frames=16, n_points=500,
+                                                           seed=5, step=0.25)
+    slam = slam_mod.StereoSlam(cfg, enable_loop_closing=False, enable_relocalization=False,
+                               device="cuda")
+    slam.force_sync_decisions = True
+    i = 0
+    while slam.n_keyframes < 3 and i < 15:
+        slam.process(lefts[i], rights[i], timestamp=i * 0.1)
+        i += 1
+    assert slam.n_keyframes >= 3
+    slot = torch.full((), slam.last_kf_slot, dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        left, right = slam._to_device(lefts[i], 0), slam._to_device(rights[i], 1)
+        cur = process_stereo(left, right, cfg, i * 0.1)
+        m, new_slot, _, _ = slam_mod.insert_stage(slam.map, cur, slam.last_bindings, cfg)
+        slam_mod.mapping_stage(m, new_slot, cfg, True, True, True, True)
+        slam_mod.mapping_stage(slam.map, slot, cfg, True, True, True, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

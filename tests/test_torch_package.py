@@ -48,6 +48,8 @@ SLAM_MODULES = ("models.map_state", "models.triangulation", "models.fusion",
                 "ops.indexing")
 # the place-recognition and relocalization slice's
 RELOC_MODULES = ("models.vocabulary", "models.kfdb", "models.relocalization")
+# the RGB-D and monocular slice's
+SENSOR_MODULES = ("models.initializer", "models.mono_slam")
 
 
 def test_port_imports_no_jax():
@@ -57,7 +59,7 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     assert len(names) >= 31   # every module of the port was imported
-    assert {f"{PORT.name}.{m}" for m in SLAM_MODULES + RELOC_MODULES} <= names
+    assert {f"{PORT.name}.{m}" for m in SLAM_MODULES + RELOC_MODULES + SENSOR_MODULES} <= names
 
 
 @pytest.mark.parametrize("name", ["config.py", "trajectory.py"])

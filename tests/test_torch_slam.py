@@ -199,12 +199,15 @@ def test_slam_slice_matches_reference_per_frame(frames, reference_run, monkeypat
 ])
 def test_disabled_features_raise(kwargs):
     """Loop closing (the constructor's default) constructs, with no loop
-    closer before the first registered keyframe; RGB-D input, which is not
-    ported, still raises."""
+    closer before the first registered keyframe; RGB-D input, ported now,
+    runs: one rendered frame with its depth map bootstraps the map at the
+    identity pose."""
     slam = tslam.StereoSlam(TCFG, device="cpu", **kwargs)
     assert slam.enable_loop_closing and slam.loop_closer is None and slam.loops_closed == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        slam.process_rgbd(np.zeros((256, 512), np.float32), np.ones((256, 512), np.float32))
+    grays, depths, _, _ = tsyn.render_rgbd_sequence(TCFG, n_frames=1, n_points=500, seed=5)
+    T = slam.process_rgbd(grays[0], depths[0])
+    assert T is not None and torch.equal(T, torch.eye(4))
+    assert slam.n_keyframes == 1 and int(slam.map.pt_valid.sum()) >= 100
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -234,23 +237,30 @@ def test_ported_features_construct(kwargs):
 
 
 def test_rgbd_raises_and_cuda_needs_a_card():
+    """An RGB-D frame without a feature (RGB-D input is ported now) leaves
+    the map waiting for its first keyframe; the card is required unless the
+    CPU is asked for."""
     slam = tslam.StereoSlam(TCFG, device="cpu", **OFF)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        slam.process_rgbd(np.zeros((256, 512), np.float32), np.ones((256, 512), np.float32))
+    assert slam.process_rgbd(np.zeros((256, 512), np.float32),
+                             np.ones((256, 512), np.float32)) is None
+    assert slam.n_keyframes == 0 and slam.last_frame is None
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
         tslam.StereoSlam(TCFG, device="cuda", **OFF)
 
 
-@pytest.mark.parametrize("entry", ["StereoVisualOdometry", "StereoSlam"])
+@pytest.mark.parametrize("entry", ["StereoVisualOdometry", "StereoSlam", "MonocularSlam"])
 def test_entry_points_default_to_the_card(entry):
-    """With no device given, both entry points run on the card, so without
+    """With no device given, the entry points run on the card, so without
     one they raise instead of falling back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from opendlv_perception_vision_orbslam2_tpu_torch.models.mono_slam import MonocularSlam
+
     make = {"StereoVisualOdometry": lambda: ttrack.StereoVisualOdometry(TCFG),
-            "StereoSlam": lambda: tslam.StereoSlam(TCFG, **OFF)}[entry]
+            "StereoSlam": lambda: tslam.StereoSlam(TCFG, **OFF),
+            "MonocularSlam": lambda: MonocularSlam(TCFG, **OFF)}[entry]
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         make()
 
