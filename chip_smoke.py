@@ -86,9 +86,8 @@ and the final line is not printed:
     verification's inputs, synced on both sides: ``loop_candidates``,
     ``_geometric_loop_query``, ``harvest_detect`` (host), ``verify_and_apply``,
     ``correct_loop``, ``optimize_pose_graph``, one
-    ``global_bundle_adjust_chunk`` with its pose sums by blocks and again by
-    segments, and the card's run-to-run spread of the pose graph and the
-    chunk (0: every sum runs in a fixed order);
+    ``global_bundle_adjust_chunk``, and the card's run-to-run spread of the
+    pose graph and the chunk (0: every sum runs in a fixed order);
 16. the loop stages on the card against the CPU on that closure, with the
     card's RANSAC sets on both: ``compute_loop_transform`` (the same pairs,
     verdict, n_inliers and n_total, ``T_rel`` within 1e-3), ``correct_loop``
@@ -1361,13 +1360,6 @@ def loop_phases(cfg, dev):
             gba.prob, gba.carry, fx=cfg.camera.fx, fy=cfg.camera.fy, cx=cfg.camera.cx,
             cy=cfg.camera.cy, bf=cfg.camera.bf, n_outer=1, cg_iters=gba.cg_iters,
             sums=gba.sums))
-    # the same chunk with its pose sums by segments instead of blocks
-    seg_sums = gba_mod.segment_sums(gba.prob)
-    layers["global_bundle_adjust_chunk, pose sums by segments"], _ = synced_ms(
-        lambda: gba_mod.global_bundle_adjust_chunk(
-            gba.prob, gba.carry, fx=cfg.camera.fx, fy=cfg.camera.fy, cx=cfg.camera.cx,
-            cy=cfg.camera.cy, bf=cfg.camera.bf, n_outer=1, cg_iters=gba.cg_iters,
-            sums=seg_sums))
     # run-to-run spread on the card (0: every sum runs in a fixed order)
     pg_again = pose_graph.optimize_pose_graph(pg, n_iters=15)
     carry_again = gba_mod.global_bundle_adjust_chunk(
@@ -1443,9 +1435,8 @@ def loop_phases(cfg, dev):
           f"1e-3) | one GBA chunk: cost {cost_card:.6g} vs {cost_cpu:.6g} (relative "
           f"{abs(cost_card - cost_cpu) / abs(cost_cpu):.3g}, bound 1e-3), poses {dt_g:.3g} m, "
           f"{dr_g:.3g} rad (bounds 1e-3) | the chunk twice on the card: "
-          f"{'bit-equal' if chunk_bits else 'DIFFERENT'} (edge sums: "
-          f"{'blocks of ' + str(g_card.sums.pose_block) if g_card.sums.pose_block else 'segments'}"
-          f" by pose, segments by point)", flush=True)
+          f"{'bit-equal' if chunk_bits else 'DIFFERENT'} (segment sums by pose and by point)",
+          flush=True)
     print("loop_gba_precision: one chunk after 5/10/20/40 CG steps, max keyframe translation "
           "gap m | card-CPU float32, card float32-float64, CPU float32-float64, card-CPU "
           "float64: " + " | ".join(f"{cg}: {a:.3g}, {b:.3g}, {c:.3g}, {d:.3g}"

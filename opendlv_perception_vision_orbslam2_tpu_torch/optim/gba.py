@@ -14,9 +14,9 @@ chunk of iterations reads nothing back.  The solve is single-device; the
 edge-sharded form of the reference package is ROADMAP.md queue 1 item 9.
 
 The per-pose and per-point sums run in an order fixed by the problem
-(:class:`EdgeSums`), so a solve gives the same bits on every run: the
-reference's ``.at[].add`` becomes ``index_add``, whose float atomics on CUDA
-add in whatever order the threads arrive.
+(:class:`EdgeSums`), so a solve gives the same bits on every run, where
+``index_add`` (the reference's ``.at[].add``) adds on CUDA by float atomics
+in whatever order the threads arrive.
 """
 
 from __future__ import annotations
@@ -31,21 +31,16 @@ from .ba import BAProblem, CHI2_MONO, CHI2_STEREO, _edge_chi2, _edge_residuals, 
 
 class EdgeSums(NamedTuple):
     """The fixed summation order of one problem's edges, built once per
-    problem by :func:`edge_sums` or :func:`segment_sums`.
+    problem by :func:`edge_sums`: the live edges sorted by pose
+    (``pose_order``, stable) and by point (``pt_order``), summed segment by
+    segment (``pose_lengths [Ko]``, ``pt_lengths [P]``), each segment in
+    edge order.  On the CPU that is the order of ``index_add`` and of the
+    reference's scatter on XLA:CPU, bit for bit; on the card it is the
+    same order on every run.  Edges left out of a sum carry zero weight in
+    it."""
 
-    Segments: the live edges sorted by point (``pt_order``, stable) and
-    summed segment by segment (``pt_lengths [P]``), each segment in edge
-    order: the order of the CPU's ``index_add`` and of the reference's
-    scatter on XLA:CPU, bit for bit.  The pose side is summed the same way
-    (``pose_order``, ``pose_lengths [Ko]``), or, with ``pose_block = F``,
-    by blocks: the edges come in ``[Ko, F]`` blocks, row k all on pose k
-    (``extract_global_ba``'s layout), and a pose's terms are a reshape and
-    a sum (a fixed tree order).  Edges left out of a sum carry zero weight
-    in it."""
-
-    pose_block: int
-    pose_order: torch.Tensor | None
-    pose_lengths: torch.Tensor | None
+    pose_order: torch.Tensor
+    pose_lengths: torch.Tensor
     pt_order: torch.Tensor
     pt_lengths: torch.Tensor
 
@@ -61,31 +56,12 @@ def _segments(keys, live, n: int):
     return order, lengths
 
 
-def _live(prob: BAProblem):
-    return prob.e_valid & prob.pt_valid[prob.e_pt.long()]
-
-
-def segment_sums(prob: BAProblem) -> EdgeSums:
-    """Every sum of ``prob`` by segments (see :class:`EdgeSums`)."""
-    Ko, P = prob.T_opt.shape[0], prob.pts.shape[0]
-    live = _live(prob)
-    return EdgeSums(0, *_segments(prob.e_kf, live & (prob.e_kf < Ko), Ko),
-                    *_segments(prob.e_pt, live, P))
-
-
 def edge_sums(prob: BAProblem) -> EdgeSums:
-    """The summation order of ``prob``'s edges (see :class:`EdgeSums`).  On
-    the card the pose sums go by blocks when the edges are laid out in
-    blocks, read from ``prob.e_kf`` (one sync, as is each segment count): a
-    problem is never assumed to be blocked.  A segment there is one thread's
-    serial loop over a keyframe's edges, the slower order (PERF.md §6).  On
-    the CPU every sum goes by segments, ``index_add``'s order."""
-    Ko, P, E = prob.T_opt.shape[0], prob.pts.shape[0], prob.e_kf.shape[0]
-    if prob.e_kf.is_cuda and Ko and E % Ko == 0 and torch.equal(
-            prob.e_kf, torch.arange(Ko, dtype=prob.e_kf.dtype, device=prob.e_kf.device)
-            .repeat_interleave(E // Ko)):
-        return EdgeSums(E // Ko, None, None, *_segments(prob.e_pt, _live(prob), P))
-    return segment_sums(prob)
+    """The summation order of ``prob``'s edges (see :class:`EdgeSums`)."""
+    Ko, P = prob.T_opt.shape[0], prob.pts.shape[0]
+    live = prob.e_valid & prob.pt_valid[prob.e_pt.long()]
+    return EdgeSums(*_segments(prob.e_kf, live & (prob.e_kf < Ko), Ko),
+                    *_segments(prob.e_pt, live, P))
 
 
 def _segment_sum(x, order, lengths):
@@ -132,7 +108,6 @@ def _outer(carry, prob: BAProblem, sums: EdgeSums, pose_free, fx, fy, cx, cy, bf
     camera that saw it in front is refused, whatever the cost says (the cost
     leaves such edges out)."""
     T_opt, pts, lam, prev_cost = carry
-    Ko, P = T_opt.shape[0], pts.shape[0]
     dt, dev = T_opt.dtype, T_opt.device
     T_all = torch.cat([T_opt, prob.T_fix])
     r, Jp, Jl, row_w, kf_idx, active = _edge_terms(T_all, pts, prob, fx, fy, cx, cy, bf,
@@ -141,8 +116,6 @@ def _outer(carry, prob: BAProblem, sums: EdgeSums, pose_free, fx, fy, cx, cy, bf
     pt_ok = prob.pt_valid[:, None]
 
     def to_poses(x):      # [E, ...] -> [Ko, ...]; terms off the free poses are 0
-        if sums.pose_block:
-            return x.reshape((Ko, sums.pose_block) + x.shape[1:]).sum(1)
         return _segment_sum(x, sums.pose_order, sums.pose_lengths)
 
     def to_points(x):     # [E, ...] -> [P, ...]; inactive edges' terms are 0

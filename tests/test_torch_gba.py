@@ -176,36 +176,23 @@ def _permuted(prob, seed=0):
 @pytest.mark.parametrize("layout", ["blocked", "general"])
 def test_fixed_order_sums_match_index_add(layout):
     """The GBA's per-pose and per-point sums (``optim/gba.py::EdgeSums``)
-    against ``index_add`` of the same edge terms: the segment sums bit for
-    bit (on the CPU both add each segment in edge order), the blocked pose
-    sums within float rounding; on the CPU ``edge_sums`` is every sum by
-    segments, whatever the layout."""
+    against ``index_add`` of the same edge terms, bit for bit (on the CPU
+    both add each segment in edge order), on ``extract_global_ba``'s
+    blocked layout and on the edges shuffled; the solve from the shuffled
+    edges within the ring map's float32 tolerance of the blocked one's."""
     m, _, _ = _ring_map()
-    prob = tgba.extract_global_ba(from_jax_numpy(_np_tree(m)))
-    if layout == "general":
-        prob = _permuted(prob)
+    blocked = tgba.extract_global_ba(from_jax_numpy(_np_tree(m)))
+    prob = blocked if layout == "blocked" else _permuted(blocked)
     Ko, P, E = prob.T_opt.shape[0], prob.pts.shape[0], prob.e_kf.shape[0]
-    segments = tg.edge_sums(prob)
-    assert segments.pose_block == 0
-    assert all(torch.equal(a, b) for a, b in zip(segments[1:], tg.segment_sums(prob)[1:]))
-    blocked = layout == "blocked"
-    assert blocked == torch.equal(prob.e_kf.long(), torch.arange(Ko).repeat_interleave(E // Ko))
-    blocks = segments._replace(pose_block=E // Ko, pose_order=None, pose_lengths=None)
+    sums = tg.edge_sums(prob)
     live = prob.e_valid & prob.pt_valid[prob.e_pt.long()]
     g = torch.Generator().manual_seed(1)
     for shape, dt in (((6,), torch.float32), ((6, 6), torch.float32), ((3, 3), torch.float64)):
         x = torch.randn((E,) + shape, generator=g, dtype=dt) * live.reshape((-1,) + (1,) * len(shape))
         ref = torch.zeros((Ko,) + shape, dtype=dt).index_add(0, prob.e_kf.long(), x)
-        seg = tg._segment_sum(x, segments.pose_order, segments.pose_lengths)
-        assert torch.equal(seg, ref)
-        if blocked:
-            blk = x.reshape((Ko, blocks.pose_block) + shape).sum(1)
-            _close(blk, ref, 1e-5 if dt == torch.float32 else 1e-12, 1e-6)
+        assert torch.equal(tg._segment_sum(x, sums.pose_order, sums.pose_lengths), ref)
         ref = torch.zeros((P,) + shape, dtype=dt).index_add(0, prob.e_pt.long(), x)
-        assert torch.equal(tg._segment_sum(x, segments.pt_order, segments.pt_lengths), ref)
-    # the solve with either order: within the ring map's float32 tolerance
+        assert torch.equal(tg._segment_sum(x, sums.pt_order, sums.pt_lengths), ref)
     cam = TCFG.camera
     kw = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf, n_outer=2, cg_iters=30)
-    T_s = tg.gba_core(prob, sums=segments, **kw)[0]
-    if blocked:
-        _close(tg.gba_core(prob, sums=blocks, **kw)[0], T_s, 1e-3)
+    _close(tg.gba_core(prob, sums=sums, **kw)[0], tg.gba_core(blocked, **kw)[0], 1e-3)
