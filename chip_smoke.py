@@ -113,13 +113,33 @@ and the final line is not printed:
     initialization, the initializer's ms and host syncs, the Sim3-aligned
     ATE (reported, not gated).
 
+19. the service layer at KITTI size: phase 9's 24 frames written as a
+    KITTI-layout directory of PNGs; ``__main__.main`` run in process with
+    deploy/docker-compose.yml's flags and ``--kittiPath`` (no ``--cid``).
+    Gates: exit 0, poses.txt 24 rows of 12 finite numbers, map.txt not
+    empty, fps.txt 24 lines, never lost, >= 5 keyframes, 1 FAST + 2 gather
+    launches a frame, ATE of poses.txt (align=True) <
+    ``SERVICE_ATE_BOUND_M``, no host sync at the service layer's sites
+    (``SERVICE_FILES``) inside ``track``.  Prints ms/frame median and worst
+    from fps.txt beside phase 12's over the same frames, the PNG decoder,
+    the publish lag in frames, peak device memory and the host syncs made
+    inside ``track`` by site.  Then ``Selflocalization`` with a recording
+    session driven by ``KittiRunner`` over the same directory: one
+    Geolocation a frame, in frame order, each ``pose_to_geolocation`` of
+    the frame's logged pose; frame 20's OrbslamMap chunks equal
+    ``chunk_map_messages`` of that frame's pose and map; every envelope
+    encodes.  Then the live loop with rectification (``SERVICE_LIVE_FLAGS``)
+    over 6 rendered side-by-side 2560x720 frames handed in: finite poses,
+    the rectify maps on the card, ``remap_bilinear`` card against CPU on a
+    1280x720 frame within ``SERVICE_REMAP_TOL``.
+
 Phases 3-4 also check the one-eye kernel cases of phases 17-18: one
 ``fast_nms_pyramid`` launch over one eye's 8 levels, and the one-eye ORB
 atlas gather at N = 2000 and at the monocular initialization's 2048.
 
 Then one JSON line of kernel results (each kernel's per-frame numbers, its
 sites, and its launches on phase 15's path (``launches``) and on phases 5,
-9, 12, 17 and 18), the nvidia-smi line, and the last line
+9, 12, 17, 18 and 19's CLI drive), the nvidia-smi line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports no jax.
 """
 
@@ -794,7 +814,8 @@ def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_lat, n_timed,
     ``lefts``/``rights`` with ground truth ``gt`` and the 512x256 fixture
     config ``fcfg``; ``expected`` are the launch counts of one pass over the
     frames, ``slam_lat`` phase 9's seconds per frame.  Returns phase 12's
-    launch counts."""
+    launch counts and its seconds per frame (frames before the profiled
+    ones)."""
     import numpy as np
     import torch
 
@@ -1012,7 +1033,7 @@ def reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_lat, n_timed,
     print("reloc_phases_seconds: phase 12 / 13 / 14: "
           + " / ".join(f"{b - a:.1f}" for a, b in zip(t_phase, t_phase[1:])), flush=True)
 
-    return reloc_launches
+    return reloc_launches, lat
 
 
 def _pose_gap(A, B, valid):
@@ -1671,6 +1692,308 @@ def mono_phase(cfg, dev):
     return launches
 
 
+# Phase 19: the service layer.  The KITTI-layout directory holds phase 9's
+# 24 frames; the CLI runs with deploy/docker-compose.yml's flags.
+SERVICE_DRIVE = dict(n_frames=24, n_points=900, seed=0, step=0.6)   # phase 9's frames
+SERVICE_FLAGS = (
+    "--name=cam0 --width=2560 --height=720 --bpp=24 --cameraType=stereo "
+    "--Camera.fx=718.856 --Camera.fy=718.856 --Camera.cx=607.1928 --Camera.cy=185.2157 "
+    "--Camera.k1=0 --Camera.k2=0 --Camera.k3=0 --Camera.p1=0 --Camera.p2=0 --Camera.fps=15 "
+    "--Camera.bf=386.1448 --Camera.RGB=1 --ThDepth=35 --ORBextractor.nFeatures=2000 "
+    "--ORBextractor.scaleFactor=1.2 --ORBextractor.nLevels=8 --ORBextractor.iniThFAST=20 "
+    "--ORBextractor.minThFAST=7"
+).split()   # deploy/docker-compose.yml:27-35 without --cid and --kittiPath
+# The reference package's own CLI over this directory on the CPU: 14
+# keyframes, never lost, ATE of its poses.txt 0.0103 m and of its re-chained
+# trajectory after finish() 0.0109 m (align=True;
+# tests/test_torch_service.py::test_kitti_cli_reference_run, which holds it
+# to this phase's gates).  The bound leaves room for the port's own RANSAC
+# draws (phase 7: the draw moves the VO's ATE by tens of cm).
+SERVICE_ATE_BOUND_M = 0.05
+
+
+def write_png_gray(path, img) -> None:
+    """An 8-bit grayscale PNG of ``img`` [H, W] (rounded, clipped to 0-255):
+    one IDAT of zlib-compressed rows, each with filter byte 0."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    u8 = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    h, w = u8.shape
+    rows = np.hstack([np.zeros((h, 1), np.uint8), u8]).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    Path(path).write_bytes(b"\x89PNG\r\n\x1a\n"
+                           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                           + chunk(b"IDAT", zlib.compress(rows, 6)) + chunk(b"IEND", b""))
+
+
+def write_kitti_dir(directory, lefts, rights, fps: float) -> None:
+    """A KITTI-layout sequence: ``times.txt`` and ``image_0/``, ``image_1/``
+    of 6-digit PNGs."""
+    d = Path(directory)
+    (d / "image_0").mkdir(parents=True, exist_ok=True)
+    (d / "image_1").mkdir(parents=True, exist_ok=True)
+    (d / "times.txt").write_text("".join(f"{i / fps:.6e}\n" for i in range(len(lefts))))
+    for i, (left, right) in enumerate(zip(lefts, rights)):
+        write_png_gray(d / "image_0" / f"{i:06d}.png", left)
+        write_png_gray(d / "image_1" / f"{i:06d}.png", right)
+
+
+def read_kitti_poses(path):
+    """poses.txt rows (camera-to-world 3x4) as world->camera 4x4 poses."""
+    import numpy as np
+
+    rows = np.loadtxt(path, ndmin=2)
+    T_wc = np.tile(np.eye(4), (len(rows), 1, 1))
+    T_wc[:, :3, :] = rows.reshape(-1, 3, 4)
+    return list(np.linalg.inv(T_wc))
+
+
+# Phase 19's live path: the deploy flags with rectification from a small
+# relative rotation and lens distortion, over 6 rendered side-by-side frames
+SERVICE_LIVE_FLAGS = [
+    "--cid=120", "--rectify=1", "--Camera.baseline=0.53716", "--Camera.rx=0.002",
+    "--Camera.cv=-0.001", "--Camera.rz=0.0015", "--Camera.k1=-0.02", "--Camera.k2=0.005",
+    "--Camera.p1=1e-4", "--Camera.p2=-1e-4"]
+SERVICE_LIVE_FRAMES = 6
+SERVICE_REMAP_TOL = 1e-3     # remap_bilinear, card against CPU, grey levels
+# the service layer's files: host syncs whose innermost frame in the port is
+# in one of them are the service layer's own
+SERVICE_FILES = ("selflocalization.py", "kitti.py", "__main__.py")
+
+
+class _Session:
+    """An OD4 session stand-in that keeps what was sent (the live path's
+    ``--cid`` opens no socket)."""
+
+    def __init__(self, *args, **kwargs):
+        self.sent = []
+
+    def send(self, message, timestamp=None):
+        self.sent.append(message)
+
+    def close(self):
+        pass
+
+
+def service_phase(cfg, dev, phase12_lat):
+    """Phase 19: the service layer at KITTI size.  The CLI in process over a
+    KITTI-layout directory of phase 9's frames with the deploy flags; a
+    ``Selflocalization`` with a recording session driven by ``KittiRunner``
+    over the same directory; the live loop with rectification over rendered
+    side-by-side frames.  ``phase12_lat`` is phase 12's seconds per frame.
+    Returns the CLI drive's launch counts."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from opendlv_perception_vision_orbslam2_tpu_torch import __main__ as cli
+    from opendlv_perception_vision_orbslam2_tpu_torch.io import kitti as kitti_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.io import od4 as od4_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.io.messages import (
+        Geolocation, chunk_map_messages, encode_envelope,
+    )
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import selflocalization as sel_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops import undistort
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic, trajectory
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils.config import config_from_flags
+
+    t0 = time.perf_counter()
+    gc.collect()
+    lefts, rights, gt, _ = synthetic.render_stereo_sequence(cfg, **SERVICE_DRIVE)
+    n = lefts.shape[0]
+    inner_sel = sel_mod.Selflocalization
+    made, lost, drive_sites, posted = [], [], {}, []
+    watch = {"syncs": None, "post": False}    # what Recording.track records
+
+    class Recording(inner_sel):
+        """Keeps the pipeline and each frame's lost flag; with
+        ``watch["syncs"]`` the host syncs made inside ``track`` by site; with
+        ``watch["post"]`` each frame's posted pose and frame 20's map
+        (tensors, read after the drive)."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def track(self, *args, **kwargs):
+            syncs = watch["syncs"]
+            before = dict(syncs.sites) if syncs is not None else {}
+            T = super().track(*args, **kwargs)
+            lost.append(self.slam.lost)
+            if watch["post"]:
+                posted.append((self.slam.trajectory[-1],
+                               self.slam.map if self.frame_count == 20 else None))
+            if syncs is not None:
+                for site, k in syncs.sites.items():
+                    if k != before.get(site, 0):
+                        drive_sites[site] = drive_sites.get(site, 0) + k - before.get(site, 0)
+            return T
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_service_") as tmp:
+        d = Path(tmp) / "kitti"
+        write_kitti_dir(d, lefts, rights, cfg.camera.fps)
+        write_s = time.perf_counter() - t0
+
+        # -- 19a. the CLI, in process, on the card -----------------------------
+        sel_mod.Selflocalization = Recording
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            with _SyncCounter() as syncs:
+                watch["syncs"] = syncs
+                rc = cli.main([f"--kittiPath={d}"] + SERVICE_FLAGS)
+            watch["syncs"] = None
+            launches = read_launches()
+        finally:
+            sel_mod.Selflocalization = inner_sel
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        pipe = made[0]
+        slam = pipe.slam
+        poses_txt = (d / "poses.txt").read_text().strip().splitlines()
+        est = read_kitti_poses(d / "poses.txt")
+        fps_rows = [line.split() for line in (d / "fps.txt").read_text().strip().splitlines()]
+        ms = np.array([1e3 / float(f) for f, _ in fps_rows])
+        ref_ms = 1e3 * np.array(phase12_lat)
+        span = slice(1, min(len(ref_ms), n))
+        service_syncs = {k: v for k, v in drive_sites.items()
+                         if k.split(":")[0] in SERVICE_FILES}
+        ate = trajectory.ate_rmse(est, list(gt)) if len(est) == n else float("nan")
+        lags = pipe.publisher.lags
+        print(f"service_cli: python -m opendlv_perception_vision_orbslam2_tpu_torch "
+              f"--kittiPath=<{n} PNG pairs 1241x376> + deploy/docker-compose.yml's flags, "
+              f"exit {rc} | keyframes {slam.n_keyframes} | map points "
+              f"{int(slam.map.pt_valid.sum())} | lost at {[i for i, x in enumerate(lost) if x]} "
+              f"| ms/frame from fps.txt over frames {span.start}-{span.stop - 1}: median "
+              f"{np.median(ms[span]):.2f} worst {ms[span].max():.2f} (phase 12, same frames, a "
+              f"sync each frame: median {np.median(ref_ms[span]):.2f} worst "
+              f"{ref_ms[span].max():.2f}) | first frame {ms[0]:.1f} ms | publish lag in "
+              f"frames: max {max(lags)}, mean "
+              f"{np.mean(lags):.2f} | peak device memory {peak_gb:.3f} GB | ATE of poses.txt "
+              f"{ate:.4f} m (align=True, bound {SERVICE_ATE_BOUND_M} m) | host syncs in track: "
+              f"{sum(drive_sites.values())} ({drive_sites}), at the service layer's sites "
+              f"{sum(service_syncs.values())}; {syncs.n} over the whole CLI run | "
+              f"launches/frame {per_frame(launches, n)}", flush=True)
+        if rc != 0:
+            raise AssertionError(f"service CLI: exit code {rc}")
+        if len(poses_txt) != n or any(len(r.split()) != 12 for r in poses_txt) or \
+                not all(np.isfinite(T).all() for T in est):
+            raise AssertionError(f"service CLI: poses.txt has {len(poses_txt)} rows, want {n} "
+                                 "of 12 finite numbers")
+        if (d / "map.txt").stat().st_size == 0 or len(fps_rows) != n:
+            raise AssertionError(f"service CLI: map.txt empty or fps.txt has {len(fps_rows)} "
+                                 f"lines, want {n}")
+        if any(lost) or slam.lost or slam.n_keyframes < 5:
+            raise AssertionError(f"service CLI: lost at {[i for i, x in enumerate(lost) if x]}"
+                                 f" (at the end: {slam.lost}), {slam.n_keyframes} keyframes "
+                                 "(need >= 5)")
+        expected = {"fast_nms": 0, "fast_nms_pyramid": n, "gather_patches": n,
+                    "gather_patches_multi": n}
+        if launches != expected:
+            raise AssertionError(f"service CLI: kernel launches {launches}, expected {expected}")
+        if not ate < SERVICE_ATE_BOUND_M:
+            raise AssertionError(f"service CLI: ATE {ate:.4f} m >= {SERVICE_ATE_BOUND_M} m")
+        if service_syncs:
+            raise AssertionError(f"service CLI: host syncs at the service layer's sites "
+                                 f"{service_syncs}")
+        if max(lags) > sel_mod.MAX_PUBLISH_LAG:
+            raise AssertionError(f"service CLI: a message {max(lags)} frames late")
+
+        # -- 19b. publishing: Selflocalization + KittiRunner, recorded ----------
+        del made[:], lost[:]
+        watch["post"] = True
+        rec = _Session()
+        scfg = config_from_flags([f"--kittiPath={d}"] + SERVICE_FLAGS)
+        sel_mod.Selflocalization = Recording
+        try:
+            pipe = sel_mod.Selflocalization(scfg, od4=rec)
+        finally:
+            sel_mod.Selflocalization = inner_sel
+        runner = kitti_mod.KittiRunner(str(d), pipe, publisher=rec)
+        runner.run()
+        pipe.shutdown()
+        watch["post"] = False
+        geo_at = [i for i, m in enumerate(rec.sent) if isinstance(m, Geolocation)]
+        if len(geo_at) != n:
+            raise AssertionError(f"publishing: {len(geo_at)} Geolocation messages, want {n}")
+        ref = (scfg.ref_latitude, scfg.ref_longitude, scfg.start_heading)
+        for i, (k, (T, _)) in enumerate(zip(geo_at, posted)):
+            want = sel_mod.pose_to_geolocation(T.cpu().numpy(), *ref)
+            if rec.sent[k].encode() != want.encode():
+                raise AssertionError(f"publishing: frame {i}'s Geolocation {rec.sent[k]} is "
+                                     f"not its logged pose's {want}")
+        chunks = rec.sent[geo_at[19] + 1:geo_at[20]]
+        T20, m20 = posted[19]
+        pts = m20.pt_pos.cpu().numpy()[m20.pt_valid.cpu().numpy()]
+        want = chunk_map_messages(T20.cpu().numpy(), pts.tolist())
+        if [m.encode() for m in chunks] != [m.encode() for m in want] or \
+                len(rec.sent) != n + len(chunks):
+            raise AssertionError(f"publishing: {len(chunks)} OrbslamMap chunks at frame 20, "
+                                 f"want {len(want)} for {len(pts)} points, and nothing else")
+        for m in rec.sent:
+            env = encode_envelope(m, sender_stamp=0, timestamp=1.0)
+            if env[:2] != b"\x0d\xa4" or len(env) != 5 + int.from_bytes(env[2:5], "little"):
+                raise AssertionError(f"publishing: envelope of {type(m).__name__} malformed")
+        print(f"service_publish: Selflocalization(cfg, od4=<recording>) + KittiRunner over the "
+              f"same directory, PNG decoder {runner.decoder} | {len(geo_at)} Geolocation, one a "
+              f"frame in frame order, each "
+              f"pose_to_geolocation of the frame's logged pose | {len(chunks)} OrbslamMap chunks "
+              f"at frame 20 ({len(pts)} points, chunk_map_messages' contract) | "
+              f"{len(rec.sent)} envelopes encode | publish lag max {max(pipe.publisher.lags)}",
+              flush=True)
+
+    # -- 19c. the live loop with rectification, frames handed in -------------
+    lcfg = config_from_flags(SERVICE_FLAGS + SERVICE_LIVE_FLAGS)
+    eye = dataclasses.replace(cfg, camera=dataclasses.replace(
+        cfg.camera, width=lcfg.width // 2, height=lcfg.height))
+    ll, lr, _, _ = synthetic.render_stereo_sequence(
+        eye, **dict(SERVICE_DRIVE, n_frames=SERVICE_LIVE_FRAMES))
+    frames = [(np.hstack([a, b]), i / cfg.camera.fps) for i, (a, b) in enumerate(zip(ll, lr))]
+    maps, inner_loop, inner_session = [], cli.live_loop, od4_mod.OD4Session
+
+    def recording_loop(pipeline, frames, raw_width, rect_maps=None, resize_to=None):
+        maps.append(rect_maps)
+        return inner_loop(pipeline, frames, raw_width, rect_maps, resize_to)
+
+    del made[:], lost[:]
+    cli.live_loop, od4_mod.OD4Session = recording_loop, _Session
+    sel_mod.Selflocalization = Recording
+    try:
+        rc = cli.main(SERVICE_FLAGS + SERVICE_LIVE_FLAGS, frames=frames)
+    finally:
+        cli.live_loop, od4_mod.OD4Session = inner_loop, inner_session
+        sel_mod.Selflocalization = inner_sel
+    live_poses = [T.cpu().numpy() for T in made[0].slam.trajectory]
+    grid_l, grid_r = maps[0]
+    left = torch.from_numpy(frames[0][0][:, : lcfg.width // 2].copy())
+    err = 0.0
+    for grid in (grid_l, grid_r):
+        on_card = undistort.remap_bilinear(left.to(dev), grid)
+        on_cpu = undistort.remap_bilinear(left, grid.cpu())
+        err = max(err, float((on_card.cpu() - on_cpu).abs().max()))
+    print(f"service_live: {SERVICE_LIVE_FRAMES} side-by-side frames 2560x720 through the live "
+          f"loop with --rectify=1 (rx/cv/rz 0.002/-0.001/0.0015, k1/k2 -0.02/0.005, p1/p2 "
+          f"1e-4/-1e-4) on the card, exit {rc} | rectify maps {tuple(grid_l.shape)} on "
+          f"{grid_l.device} | rectified camera fx {made[0].config.camera.fx:.3f} cx "
+          f"{made[0].config.camera.cx:.3f} bf {made[0].config.camera.bf:.3f} | poses "
+          f"{len(live_poses)}, keyframes {made[0].slam.n_keyframes} | remap_bilinear card vs "
+          f"CPU on a 1280x720 frame: max abs err {err:.2e} (tol {SERVICE_REMAP_TOL}) | "
+          f"{time.perf_counter() - t0:.1f} s (PNG writing {write_s:.1f} s)", flush=True)
+    if rc != 0 or not live_poses or not all(np.isfinite(T).all() for T in live_poses):
+        raise AssertionError(f"service live: exit {rc}, {len(live_poses)} poses, not all finite")
+    if grid_l.device.type != "cuda" or not err <= SERVICE_REMAP_TOL:
+        raise AssertionError(f"service live: maps on {grid_l.device}, remap card vs CPU {err}")
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2044,8 +2367,8 @@ def main() -> int:
           f"{n_far} (bound > 30), median rel err {rel_far:.4f} (bound 0.04)", flush=True)
 
     # -- 12-14. place recognition, relocalization, localization-only mode ---
-    reloc_launches = reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected, slam_lat,
-                                  n_timed, n_prof_slam)
+    reloc_launches, reloc_lat = reloc_phases(cfg, fcfg, dev, lefts, rights, gt, expected,
+                                             slam_lat, n_timed, n_prof_slam)
 
     # -- 15-16. loop closing and global BA on the loop circuit ---------------
     loop_launches = loop_phases(cfg, dev)
@@ -2056,6 +2379,11 @@ def main() -> int:
     mono_launches = mono_phase(cfg, dev)
     print(f"sensor_phases_seconds: phases 17-18 {time.perf_counter() - t_phase:.1f}", flush=True)
 
+    # -- 19. the service layer: the CLI, publishing, the live loop -----------
+    t_phase = time.perf_counter()
+    service_launches = service_phase(cfg, dev, reloc_lat)
+    print(f"service_phase_seconds: phase 19 {time.perf_counter() - t_phase:.1f}", flush=True)
+
     kernels = [
         dict(name=name, route="cuda",
              source=f"opendlv_perception_vision_orbslam2_tpu_torch/csrc/{name}.cu",
@@ -2064,7 +2392,8 @@ def main() -> int:
              launches_slam=kernel_launches(slam_launches, name),
              launches_reloc=kernel_launches(reloc_launches, name),
              launches_rgbd=kernel_launches(rgbd_launches, name),
-             launches_mono=kernel_launches(mono_launches, name), **results[name])
+             launches_mono=kernel_launches(mono_launches, name),
+             launches_service=kernel_launches(service_launches, name), **results[name])
         for name in ("fast_nms", "gather_patches")
     ]
     print(json.dumps({"kernels": kernels}))

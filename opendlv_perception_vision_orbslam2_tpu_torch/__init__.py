@@ -13,9 +13,16 @@ to find:
              initializer, the SLAM drivers (stereo and RGB-D, monocular)
   optim/     EPnP RANSAC, pose-only Gauss-Newton, grid local BA, global BA,
              the essential-graph pose graph
-  utils/     config (copied verbatim), numpy synthetic world, ATE, host
-             fetches, JAX<->torch state conversion
+  utils/     config, trajectory and wgs84 (copied verbatim), numpy
+             synthetic world, host fetches, JAX<->torch state conversion
+  io/        the OD4 wire format and session (copied verbatim), the KITTI
+             runner, the map checkpoint, shared-memory camera ingest
+  native/    ctypes loader of the repo's ``native/`` C++ host runtime (PNG
+             decode, cluon shared memory, UDP), built at first use
   csrc/      CUDA C++ sources, built with nvcc at first use into ``_build/``
+  __main__   the CLI: ``python -m opendlv_perception_vision_orbslam2_tpu_torch``
+             with the reference microservice's flags (``Selflocalization``,
+             in ``models/selflocalization.py``, is the service it runs)
 
 Dispatch rule for every kernel wrapper: a CPU tensor takes the plain PyTorch
 version, a CUDA tensor launches the CUDA kernel (or raises).  Nothing here

@@ -576,3 +576,53 @@ def test_repaired_sites_make_no_host_sync_on_card():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_remap_bilinear_on_card_equals_cpu():
+    """The live ingest's rectification remap of a 512x256 frame, card
+    against CPU, within 1e-3 grey levels, from the same float32 maps."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops import undistort
+
+    R = undistort.rodrigues(torch.tensor([0.002, -0.001, 0.0015]))
+    R1, _, (fx, fy, cx, cy), _ = undistort.stereo_rectify(
+        R, torch.tensor([-0.5, 0.0, 0.0]), 320.0, 320.0, 256.0, 128.0, 320.0, 320.0, 256.0, 128.0)
+    grid = undistort.build_rectify_map(256, 512, 320.0, 320.0, 256.0, 128.0, -0.05, 0.01, 1e-4,
+                                       -2e-4, 0.0, R1, fx, fy, cx, cy)
+    img = torch.from_numpy(_rand_img(256, 512, seed=4))
+    out = undistort.remap_bilinear(img.cuda(), grid.cuda())
+    ref = undistort.remap_bilinear(img, grid)
+    assert float((out.cpu() - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_selflocalization_track_makes_no_host_sync_on_card():
+    """One ``Selflocalization.track`` on the card under
+    ``torch.cuda.set_sync_debug_mode("error")``: the engine's frame, the
+    publisher's fetch of the pose and map size, and the sends of the frames
+    whose fetch has landed raise on any host sync."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.models.selflocalization import (
+        Selflocalization,
+    )
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic
+
+    cfg = _slam_cfg()
+    lefts, rights, _, _ = synthetic.render_stereo_sequence(cfg, n_frames=10, n_points=500,
+                                                           seed=5, step=0.25)
+    sent = []
+    od4 = type("Session", (), {"send": lambda self, m, timestamp=None: sent.append(m),
+                               "close": lambda self: None})()
+    sel = Selflocalization(cfg, od4=od4)
+    for i in range(9):
+        sel.track(lefts[i], rights[i], timestamp=i * 0.1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sel.track(lefts[9], rights[9], timestamp=0.9)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sel.shutdown()
+    assert sel.frame_count == 10 and len(sel.map_sizes) == 10
+    assert sum(type(m).__name__ == "Geolocation" for m in sent) == 10

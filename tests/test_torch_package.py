@@ -50,6 +50,9 @@ SLAM_MODULES = ("models.map_state", "models.triangulation", "models.fusion",
 RELOC_MODULES = ("models.vocabulary", "models.kfdb", "models.relocalization")
 # the RGB-D and monocular slice's
 SENSOR_MODULES = ("models.initializer", "models.mono_slam")
+# the service layer's: imported without building or opening anything
+SERVICE_MODULES = ("__main__", "native", "io", "io.messages", "io.od4", "io.shared_memory",
+                   "io.kitti", "io.checkpoint", "models.selflocalization", "utils.wgs84")
 
 
 def test_port_imports_no_jax():
@@ -59,7 +62,8 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     assert len(names) >= 31   # every module of the port was imported
-    assert {f"{PORT.name}.{m}" for m in SLAM_MODULES + RELOC_MODULES + SENSOR_MODULES} <= names
+    assert {f"{PORT.name}.{m}"
+            for m in SLAM_MODULES + RELOC_MODULES + SENSOR_MODULES + SERVICE_MODULES} <= names
 
 
 @pytest.mark.parametrize("name", ["config.py", "trajectory.py"])
