@@ -4,10 +4,11 @@ Counterpart of the reference package's ``models/global_ba.py``
 (RunGlobalBundleAdjustment, reference: src/loopclosing.cpp:645-750): after a
 loop correction every keyframe pose and map point is refined.  The whole map
 becomes one flat edge list (every ``[K, F]`` binding an edge), the
-matrix-free Schur-CG solver runs on one device, and write-back is an array
-swap that folds the snapshot's result into the map as it is now; dropping
-the solver object aborts it.  Single-device only: the edge-sharded solve is
-ROADMAP.md queue 1 item 9.
+matrix-free Schur-CG solver runs, and write-back is an array swap that
+folds the snapshot's result into the map as it is now; dropping the solver
+object aborts it.  With a process group of more than one rank, the chunked
+solve runs edge-sharded: rank 0's engine broadcasts the problem once and the
+other ranks serve the chunks (``parallel/serve.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from ..optim.ba import BAProblem
 from ..optim.gba import (
     edge_sums, gba_core, gba_init_carry, global_bundle_adjust_chunk,
 )
+from ..parallel.collectives import group_active
+from ..parallel.serve import EngineGBA
 from ..utils.config import SystemConfig
 from .map_state import MapState, recompute_covisibility
 
@@ -96,14 +99,34 @@ class IncrementalGBA:
     """Chunked full-map BA: one LM iteration per frame between tracking
     steps, the functional-state form of the reference's detached, abortable
     GBA thread (src/loopclosing.cpp:576-580, 645-750).  A new loop closure
-    simply drops the instance (abort = discard)."""
+    simply drops the instance (abort = discard).
+
+    ``sharded``: None runs the chunks edge-sharded when the default process
+    group spans more than one rank (this is rank 0's engine; the others run
+    ``parallel.serve.serve``), as the reference package shards over every
+    local device; False forces the single-device solve.  Sharded, ``prob``
+    is the padded problem, the carry is replicated on every rank, and each
+    chunk makes ``7 + 2 cg_iters`` all-reduces."""
 
     def __init__(self, m: MapState, config: SystemConfig, n_outer_total: int = 10,
-                 cg_iters: int = 40):
+                 cg_iters: int = 40, sharded: bool | None = None):
         self.config = config
         self.prob = extract_global_ba(m, config.orb.scale_factor)
-        self.sums = edge_sums(self.prob)      # the chunks' summation order, read once
-        self.carry = gba_init_carry(self.prob)
+        if sharded is None:
+            sharded = group_active()
+        self._sharded = None
+        if sharded:
+            if not group_active():
+                raise RuntimeError("IncrementalGBA(sharded=True) needs a process group of "
+                                   "more than one rank")
+            cam = config.camera
+            self._sharded = EngineGBA(self.prob, m.kf_valid.device, fx=cam.fx, fy=cam.fy,
+                                      cx=cam.cx, cy=cam.cy, bf=cam.bf, cg_iters=cg_iters)
+            self.prob, self.sums = self._sharded.prob, None   # rank 0 sums its own shard
+            self.carry = self._sharded.carry
+        else:
+            self.sums = edge_sums(self.prob)      # the chunks' summation order, read once
+            self.carry = gba_init_carry(self.prob)
         self.iters_left = n_outer_total
         self.cg_iters = cg_iters
         self.snap_T = m.kf_T_cw
@@ -115,9 +138,12 @@ class IncrementalGBA:
     def step(self) -> bool:
         """One bounded chunk; True when the solve is finished."""
         cam = self.config.camera
-        self.carry = global_bundle_adjust_chunk(
-            self.prob, self.carry, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf,
-            n_outer=1, cg_iters=self.cg_iters, sums=self.sums)
+        if self._sharded is not None:
+            self.carry = self._sharded.step()
+        else:
+            self.carry = global_bundle_adjust_chunk(
+                self.prob, self.carry, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf,
+                n_outer=1, cg_iters=self.cg_iters, sums=self.sums)
         self.iters_left -= 1
         return self.iters_left <= 0
 

@@ -15,7 +15,10 @@ stage is dispatched without waiting for it, its small result vector is
 copied into pinned host memory behind a CUDA event, and the stage is adopted
 once the event has completed; the per-frame decision statistics come back
 the same way, one frame late.  One CUDA stream orders everything, so the
-tracker's next kernels run after the stage's on the device.
+tracker's next kernels run after the stage's on the device.  On rank 0 of a
+process group of several ranks, the local-map pose solve and the post-loop
+GBA run sharded over the group while the other ranks serve them
+(``parallel/``).
 
 Frame<->map binding: ``bindings [F] int32`` maps current-frame features to
 map point slots (-1 = none), the analogue of ``OrbFrame::m_mapPoints``.
@@ -35,6 +38,8 @@ from ..ops.indexing import (
     fill_at, row, scatter_add, scatter_max, scatter_set, set_row, topk_stable,
 )
 from ..optim.pose_opt import PoseObs, pose_optimize, robust_pose_estimate
+from ..parallel.collectives import rank_and_size
+from ..parallel.serve import EnginePoseSolver
 from ..utils.config import SystemConfig
 from ..utils.host import HostFetch
 from .frame import FrameState, features_scale_sigma2
@@ -202,10 +207,13 @@ def _search_local_points(m: MapState, local_pts, bindings, T_cw, cur_frame: Fram
 
 def track_frame_with_map(m: MapState, last_frame: FrameState, last_bindings, T_cw,
                          velocity, cur_frame: FrameState, config: SystemConfig,
-                         generator=None) -> TrackOutputs:
+                         generator=None, pose_solver=None) -> TrackOutputs:
     """The per-frame device program: motion-model matching and the
     RANSAC-rescued pose solve, then the local-map search and the second
-    pose solve.  ``generator`` draws the EPnP-RANSAC sets."""
+    pose solve.  ``generator`` draws the EPnP-RANSAC sets.  ``pose_solver``
+    (``fn(T, obs) -> (T, inliers, n_inliers)``) takes the second solve, as
+    the observation-sharded solver of ``parallel/serve.py`` does on a
+    process group of several ranks; None: ``pose_optimize``."""
     cam = config.camera
     P = m.pt_capacity
     F = cur_frame.features.capacity
@@ -234,8 +242,11 @@ def track_frame_with_map(m: MapState, last_frame: FrameState, last_bindings, T_c
     safe_b = bindings.clamp(0, P - 1).long()
     obs2 = PoseObs(p_w=m.pt_pos[safe_b], uv=feats.xy, u_right=feats.u_right, sigma2=sigma2,
                    valid=(bindings >= 0) & m.pt_valid[safe_b] & feats.valid)
-    T2, inliers, n_inl = pose_optimize(T1, obs2, fx=cam.fx, fy=cam.fy, cx=cam.cx,
-                                       cy=cam.cy, bf=cam.bf)
+    if pose_solver is None:
+        T2, inliers, n_inl = pose_optimize(T1, obs2, fx=cam.fx, fy=cam.fy, cx=cam.cx,
+                                           cy=cam.cy, bf=cam.bf)
+    else:
+        T2, inliers, n_inl = pose_solver(T1, obs2)
     # drop outlier bindings (reference: src/tracking.cpp:783-798)
     bindings = torch.where(obs2.valid & inliers, bindings, -1)
     found_delta = scatter_add(torch.zeros((P,), dtype=torch.int32, device=dev),
@@ -484,7 +495,28 @@ class StereoSlam:
         self._motion_prior = None
         self.loops_closed = 0
         self._staging: dict = {}    # eye -> pinned image buffers in use (``_to_device``)
+        self._pose_solver = self._sharded_pose_solver()
         self.reset()
+
+    def _sharded_pose_solver(self):
+        """On rank 0 of a default process group of D > 1 ranks, the local-map
+        pose solve sharded over the group when ``max_keypoints`` splits into
+        D blocks (the reference package's rule for its device mesh), else
+        None; the post-loop GBA shards by itself (``IncrementalGBA``)."""
+        rank, world = rank_and_size()
+        if world < 2:
+            return None
+        if rank != 0:
+            raise RuntimeError(f"rank {rank} of a group of {world}: the engine runs on rank 0; "
+                               "the other ranks call parallel.serve.serve")
+        n = self.config.orb.max_keypoints
+        if n % world:
+            print(f"StereoSlam: max_keypoints {n} does not split over {world} ranks; the "
+                  "local-map pose solve runs on rank 0 alone")
+            return None
+        cam = self.config.camera
+        return EnginePoseSolver(self.device, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+                                bf=cam.bf)
 
     # ---- state --------------------------------------------------------------
 
@@ -1046,7 +1078,7 @@ class StereoSlam:
 
         self.generator.manual_seed(self.seed)
         out = track_frame_with_map(self.map, self.last_frame, self.last_bindings, self.T_cw,
-                                   self.velocity, cur, cfg, self.generator)
+                                   self.velocity, cur, cfg, self.generator, self._pose_solver)
         if self.mapping_busy:
             # the in-flight stage's output would overwrite these counters
             self._pending_vis = self._pending_vis + out.pt_visible_delta

@@ -10,8 +10,11 @@ camera system is never formed:
 evaluates as per-edge products summed per pose and per point, and S is
 solved by block-Jacobi-preconditioned CG.  Levenberg-Marquardt keeps or
 reverts a step by comparing costs on the device (``torch.where``), so a
-chunk of iterations reads nothing back.  The solve is single-device; the
-edge-sharded form of the reference package is ROADMAP.md queue 1 item 9.
+chunk of iterations reads nothing back.  Every edge reduction (the cost,
+the gradient and diagonal blocks, the W / W^T products inside CG) passes
+through one ``reduce_fn`` hook: the identity on one device, an all-reduce
+over a process group when the edges are split across ranks
+(``parallel/sharded_ba.py``).
 
 The per-pose and per-point sums run in an order fixed by the problem
 (:class:`EdgeSums`), so a solve gives the same bits on every run, where
@@ -88,25 +91,33 @@ def _edge_terms(T_all, pts, prob: BAProblem, fx, fy, cx, cy, bf, pose_free):
     return r, J_pose, J_pt, row_w, kf_idx, active
 
 
-def _robust_cost(T_opt, pts, prob: BAProblem, fx, fy, cx, cy, bf):
-    """The Huber cost over the edges in front of their camera, and those
-    edges' mask: ``(cost, active)``."""
+def _identity(x):
+    return x
+
+
+def _robust_cost(T_opt, pts, prob: BAProblem, fx, fy, cx, cy, bf, reduce_fn=_identity):
+    """The Huber cost over the edges in front of their camera (reduced by
+    ``reduce_fn``), and those edges' mask: ``(cost, active)``."""
     T_all = torch.cat([T_opt, prob.T_fix])
     r, _, _, is_stereo, behind = _edge_residuals(T_all, pts, prob, fx, fy, cx, cy, bf)
     active = prob.e_valid & prob.pt_valid[prob.e_pt.long()] & ~behind
     chi2 = _edge_chi2(r, prob.e_sigma2, is_stereo)
     d2 = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
     c = torch.where(chi2 <= d2, chi2, 2.0 * torch.sqrt(d2 * chi2) - d2)
-    cost = torch.sum(torch.where(active, c, torch.zeros_like(c)))
+    cost = reduce_fn(torch.sum(torch.where(active, c, torch.zeros_like(c))))
     return cost, active
 
 
 def _outer(carry, prob: BAProblem, sums: EdgeSums, pose_free, fx, fy, cx, cy, bf,
-           cg_iters: int, hold_cheirality: bool = False):
+           cg_iters: int, hold_cheirality: bool = False, reduce_fn=None):
     """One LM iteration with a CG inner solve; ``carry = (T_opt, pts, lam,
     cost)``.  With ``hold_cheirality`` a step that puts a point behind a
     camera that saw it in front is refused, whatever the cost says (the cost
-    leaves such edges out)."""
+    leaves such edges out).  ``reduce_fn`` (None: the identity) takes every
+    per-pose and per-point sum and the cost: with the edges split across
+    ranks, each rank sums its own edges and ``reduce_fn`` adds the ranks'
+    sums (7 + 2 ``cg_iters`` calls)."""
+    red = reduce_fn or _identity
     T_opt, pts, lam, prev_cost = carry
     dt, dev = T_opt.dtype, T_opt.device
     T_all = torch.cat([T_opt, prob.T_fix])
@@ -116,10 +127,10 @@ def _outer(carry, prob: BAProblem, sums: EdgeSums, pose_free, fx, fy, cx, cy, bf
     pt_ok = prob.pt_valid[:, None]
 
     def to_poses(x):      # [E, ...] -> [Ko, ...]; terms off the free poses are 0
-        return _segment_sum(x, sums.pose_order, sums.pose_lengths)
+        return red(_segment_sum(x, sums.pose_order, sums.pose_lengths))
 
     def to_points(x):     # [E, ...] -> [P, ...]; inactive edges' terms are 0
-        return _segment_sum(x, sums.pt_order, sums.pt_lengths)
+        return red(_segment_sum(x, sums.pt_order, sums.pt_lengths))
 
     wr = row_w * r
     b_p = to_poses(-torch.einsum("eri,er->ei", Jp, wr))
@@ -176,10 +187,10 @@ def _outer(carry, prob: BAProblem, sums: EdgeSums, pose_free, fx, fy, cx, cy, bf
 
     T_new = torch.where(pose_free[:, None, None], lie.exp_se3(dx_c) @ T_opt, T_opt)
     pts_new = pts + dx_l
-    new_cost, active_new = _robust_cost(T_new, pts_new, prob, fx, fy, cx, cy, bf)
+    new_cost, active_new = _robust_cost(T_new, pts_new, prob, fx, fy, cx, cy, bf, red)
     accept = new_cost < prev_cost
     if hold_cheirality:
-        accept = accept & ~torch.any(active & ~active_new)
+        accept = accept & (red(torch.sum(active & ~active_new).to(lam.dtype)) == 0)
     return (torch.where(accept, T_new, T_opt), torch.where(accept, pts_new, pts),
             torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e4),
             torch.where(accept, new_cost, prev_cost))
@@ -188,28 +199,30 @@ def _outer(carry, prob: BAProblem, sums: EdgeSums, pose_free, fx, fy, cx, cy, bf
 def gba_core(prob: BAProblem, *, fx: float, fy: float, cx: float, cy: float, bf: float,
              n_outer: int = 10, cg_iters: int = 40, fix_first_pose: bool = True,
              init_carry=None, return_carry: bool = False, sums: EdgeSums | None = None,
-             hold_cheirality: bool = False):
+             hold_cheirality: bool = False, reduce_fn=None):
     """LM with matrix-free Schur-CG inner solves.  Returns ``(T_opt, pts,
     cost)``, or the LM carry ``(T_opt, pts, lam, cost)`` with
     ``return_carry``; ``init_carry`` resumes from one (the bounded chunks of
     the incremental GBA, the functional form of the reference's abortable
     GBA thread, src/loopclosing.cpp:576-580, 645-750).  ``sums`` is
-    ``edge_sums(prob)``, built here when not given; ``hold_cheirality``:
-    see :func:`_outer`."""
+    ``edge_sums(prob)``, built here when not given; ``hold_cheirality``
+    and ``reduce_fn``: see :func:`_outer` (with ``reduce_fn``, ``prob``
+    holds this rank's edges and ``sums`` their order)."""
     pose_free = prob.opt_valid
     if fix_first_pose:
         pose_free = pose_free & (torch.arange(pose_free.shape[0], device=pose_free.device) > 0)
     if init_carry is None:
         carry = (prob.T_opt, prob.pts,
                  torch.full((), 1e-4, dtype=prob.T_opt.dtype, device=prob.T_opt.device),
-                 _robust_cost(prob.T_opt, prob.pts, prob, fx, fy, cx, cy, bf)[0])
+                 _robust_cost(prob.T_opt, prob.pts, prob, fx, fy, cx, cy, bf,
+                              reduce_fn or _identity)[0])
     else:
         carry = init_carry
     if sums is None:
         sums = edge_sums(prob)
     for _ in range(n_outer):
         carry = _outer(carry, prob, sums, pose_free, fx, fy, cx, cy, bf, cg_iters,
-                       hold_cheirality)
+                       hold_cheirality, reduce_fn)
     if return_carry:
         return carry
     return carry[0], carry[1], carry[3]
@@ -225,14 +238,15 @@ def global_bundle_adjust(prob: BAProblem, *, fx: float, fy: float, cx: float, cy
 
 def global_bundle_adjust_chunk(prob: BAProblem, carry, *, fx: float, fy: float, cx: float,
                                cy: float, bf: float, n_outer: int = 1, cg_iters: int = 40,
-                               fix_first_pose: bool = True, sums: EdgeSums | None = None):
+                               fix_first_pose: bool = True, sums: EdgeSums | None = None,
+                               reduce_fn=None):
     """``n_outer`` LM iterations from an explicit ``(T, pts, lam, cost)``
     carry (start with :func:`gba_init_carry`); returns the new carry.  Pass
     ``sums = edge_sums(prob)`` to chunks of one problem: building it reads
-    back to the host."""
+    back to the host.  ``reduce_fn``: see :func:`gba_core`."""
     return gba_core(prob, fx=fx, fy=fy, cx=cx, cy=cy, bf=bf, n_outer=n_outer,
                     cg_iters=cg_iters, fix_first_pose=fix_first_pose, init_carry=carry,
-                    return_carry=True, sums=sums)
+                    return_carry=True, sums=sums, reduce_fn=reduce_fn)
 
 
 def gba_init_carry(prob: BAProblem):

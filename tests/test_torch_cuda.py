@@ -626,3 +626,20 @@ def test_selflocalization_track_makes_no_host_sync_on_card():
     sel.shutdown()
     assert sel.frame_count == 10 and len(sel.map_sizes) == 10
     assert sum(type(m).__name__ == "Geolocation" for m in sent) == 10
+
+
+@pytest.mark.cuda
+def test_sharded_gba_chunk_two_ranks_on_card(tmp_path):
+    """Two gloo ranks on ``cuda:0``, one edge-sharded GBA chunk of a small BA
+    problem (``test_torch_parallel.ba_problem``): both ranks' carries bit for
+    bit, and the poses within 1e-3 of the single-device chunk on the card
+    (phase 16's card-vs-CPU bar for one chunk)."""
+    _require_cuda()
+    from test_torch_parallel import WORLD, ba_problem, launch
+
+    rcs, logs = launch(tmp_path, "cuda_chunk", {"prob": ba_problem(0)})
+    assert rcs == [0] * WORLD, "\n".join(logs)
+    r0, r1 = (torch.load(tmp_path / f"out{r}.pt", weights_only=False) for r in range(WORLD))
+    assert all(torch.equal(a, b) for a, b in zip(r0["carry"], r1["carry"]))
+    assert float((r0["carry"][0] - r0["single"][0]).abs().max()) < 1e-3
+    assert abs(float(r0["carry"][3]) - float(r0["single"][3])) <= 1e-3 * float(r0["single"][3])

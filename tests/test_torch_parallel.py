@@ -1,0 +1,770 @@
+"""The port's multi-device slice vs the reference package's sharded solves.
+
+The port shards over ``torch.distributed``: this file starts 2 gloo ranks on
+the CPU as subprocesses (it is its own worker script, ``python
+test_torch_parallel.py SCENARIO RANK WORLD DIR``), which meet through a
+``file://`` rendezvous in the test's temporary directory.  One module-scoped
+run of the ranks does every sharded solve: the SPMD primitives on their
+shards, then rank 0 drives the engine side (``IncrementalGBA``, the pose
+solver of ``track_frame_with_map``, ``StereoSlam``) while rank 1 serves.
+The reference runs in this process on a 2-device sub-mesh of conftest's 8
+virtual CPU devices, where its edge and observation split equals the two
+ranks' contiguous halves.
+
+Tolerances, and why:
+
+- the sharded one-shot GBA against the reference's on 2 devices: poses
+  2e-5, points 1e-3 relative (``test_torch_gba.py``'s single-device bars:
+  the same float32 solve, summed in another order); against the port's
+  single-device solve 5e-3 (the reference's own sharded-vs-single bar,
+  ``tests/test_parallel.py``);
+- the chunked ``IncrementalGBA`` on a pipeline-built 512x256 map against
+  the reference's 2-device chunks: the first chunk's poses 1e-3 and its cost
+  1e-3 relative (the loop slice's card-vs-CPU bar for one chunk); the merged
+  keyframe poses after 10 chunks ``MERGED_TOL``, against the reference and
+  against the port's single-device run, both for the map's own edge order
+  (every live edge in rank 0's block) and with the edges shuffled (a real
+  split);
+- the sharded pose solve against the reference's: the pose 1e-4, the same
+  inlier mask and count; ``track_frame_with_map`` with it, from the same
+  inputs and RANSAC sets: the pose 1e-4, everything else exactly;
+- across the two ranks, and the same run twice: bit for bit (every sum runs
+  in a fixed order, and the all-reduce gives every rank the same bits);
+- the engine on two ranks against the engine alone (its pose solve has no
+  convergence exit and sums in two halves): the same keyframes, poses
+  within 1e-3.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from opendlv_perception_vision_orbslam2_tpu_torch.models import global_ba as tgba
+from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as tslam
+from opendlv_perception_vision_orbslam2_tpu_torch.ops import lie as tlie
+from opendlv_perception_vision_orbslam2_tpu_torch.optim import pnp as tpnp
+from opendlv_perception_vision_orbslam2_tpu_torch.optim.gba import edge_sums, gba_init_carry
+from opendlv_perception_vision_orbslam2_tpu_torch.optim.pose_opt import PoseObs
+from opendlv_perception_vision_orbslam2_tpu_torch.parallel import serve as tserve
+from opendlv_perception_vision_orbslam2_tpu_torch.parallel import sharded_ba as tsba
+from opendlv_perception_vision_orbslam2_tpu_torch.parallel import sharded_pose as tsp
+from opendlv_perception_vision_orbslam2_tpu_torch.utils import config as tconfig
+from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic as tsyn
+
+torch.set_num_threads(2)
+
+WORLD = 2
+CAM = dict(fx=320.0, fy=320.0, cx=256.0, cy=128.0, bf=160.0)
+CAM_CFG = dict(CAM, width=512, height=256, fps=10.0)
+ORB = dict(n_features=600, max_keypoints=1024, n_levels=4)
+KW = dict(max_keyframes=32, max_map_points=4096, initial_keyframes=32, initial_map_points=4096)
+TCFG = tconfig.SystemConfig(camera=tconfig.CameraConfig(**CAM_CFG),
+                            orb=tconfig.OrbConfig(**ORB), **KW)
+OFF = dict(enable_loop_closing=False, enable_relocalization=False)
+N_FRAMES = 6                 # tests/test_parallel.py's pipeline-built map
+DRIVE = dict(n_frames=N_FRAMES, n_points=500, seed=3, step=0.5)
+GBA_CHUNKS = 10
+REPEAT_CHUNKS = 3            # the repeated and the unsharded IncrementalGBA runs
+POSE_CASES = ("even", "padded")
+RANK_TIMEOUT_S = 240
+# the merged keyframe poses after GBA_CHUNKS chunks, 2 ranks against the
+# reference's 2 devices and against one device: the readings here were
+# 1.15e-6 and 0 (map order) and 2.9e-6 against one device (shuffled); the
+# bound leaves 30x for another CPU's rounding
+MERGED_TOL = 1e-4
+
+
+# ---- the worker side: run as ``python test_torch_parallel.py ...`` ----------
+
+def _run_igba(m, sharded, n_chunks=GBA_CHUNKS, prob=None):
+    """``IncrementalGBA`` over ``m``: the carry after every chunk, and the
+    merged map's keyframe poses and points.  ``prob`` replaces the map's
+    extracted problem (the same problem with its edges shuffled)."""
+    inner = tgba.extract_global_ba
+    if prob is not None:
+        tgba.extract_global_ba = lambda m, scale_factor: prob
+    try:
+        gba = tgba.IncrementalGBA(m, TCFG, n_outer_total=n_chunks, sharded=sharded)
+    finally:
+        tgba.extract_global_ba = inner
+    carries = []
+    while True:
+        done = gba.step()
+        carries.append(gba.carry)
+        if done:
+            break
+    merged = gba.merge(m)
+    return dict(carries=carries, kf_T=merged.kf_T_cw, pt_pos=merged.pt_pos,
+                n_edges=gba.prob.e_kf.shape[0])
+
+
+def _rank0_engine(inp):
+    """Rank 0: the engine side while rank 1 serves."""
+    import contextlib
+    import io
+
+    out = {"igba": [_run_igba(inp["map"], None), _run_igba(inp["map"], None, REPEAT_CHUNKS)],
+           "igba_split": _run_igba(inp["map"], None, prob=inp["map_prob"]),
+           "igba_off": _run_igba(inp["map"], False, REPEAT_CHUNKS)}
+    # track_frame_with_map with the engine's sharded solver, from recorded
+    # inputs and the reference's RANSAC sets
+    solver = tserve.EnginePoseSolver("cpu", **CAM)
+    inner = tpnp.sample_sets
+    tpnp.sample_sets = lambda valid, generator=None, n_hypotheses=None: inp["sets"]
+    try:
+        out["track"] = tslam.track_frame_with_map(*inp["track_inputs"], TCFG, None, solver)
+    finally:
+        tpnp.sample_sets = inner
+    # the engine: StereoSlam on rank 0 takes the sharded pose solve by itself
+    slam = tslam.StereoSlam(TCFG, device="cpu", **OFF)
+    slam.force_sync_decisions = True
+    assert isinstance(slam._pose_solver, tserve.EnginePoseSolver)
+    poses = []
+    for left, right, i in zip(inp["lefts"], inp["rights"], range(N_FRAMES)):
+        poses.append(slam.process(left, right, timestamp=i / 10.0).clone())
+    slam.finish()
+    out["engine"] = dict(poses=torch.stack(poses), n_kf=slam.n_keyframes,
+                         n_pt=int(slam.map.pt_valid.sum()))
+    # the switch: max_keypoints that does not split over the ranks
+    odd = dataclasses.replace(TCFG, orb=dataclasses.replace(TCFG.orb, max_keypoints=1023))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out["odd_solver"] = tslam.StereoSlam(odd, device="cpu", **OFF)._pose_solver
+    out["odd_said"] = text.getvalue()
+    return out
+
+
+def _main_scenario(rank, world, inp):
+    import torch.distributed as dist
+
+    out = {}
+    # the SPMD primitives: every rank calls them with its own shard
+    shard = tsba.shard_problem(tsba.pad_edges_to_multiple(inp["ba_prob"], world), rank, world)
+    run = tsba.make_sharded_gba(None, **CAM, n_outer=8, cg_iters=30)
+    out["gba"] = [run(shard) for _ in range(2)]
+    # the map's GBA problem with its edges shuffled: the live edges split
+    # over both ranks (extraction puts them in the first keyframe slots)
+    prob = tsba.pad_edges_to_multiple(inp["map_prob"], world)
+    shard = tsba.shard_problem(prob, rank, world)
+    chunk = tsba.make_sharded_gba_chunk(None, **CAM)
+    carry, sums, carries = gba_init_carry(prob), edge_sums(shard), []
+    for _ in range(GBA_CHUNKS):
+        carry = chunk(shard, carry, sums)
+        carries.append(carry)
+    out["chunks"] = carries
+    out["live_edges"] = int((shard.e_valid & shard.pt_valid[shard.e_pt.long()]).sum())
+    solo = dist.new_group([0])           # every rank takes part in forming it
+    for name in POSE_CASES:
+        T0, obs = inp["pose"][name]
+        solver = tsp.make_sharded_pose_optimizer(None, **CAM)
+        local = tsp.shard_obs(tsp.pad_obs_to_multiple(obs, world), rank, world)
+        out["pose", name] = [solver(T0, local) for _ in range(2)]
+        if rank == 0:
+            out["pose_solo", name] = tsp.make_sharded_pose_optimizer(solo, **CAM)(T0, obs)
+    # the engine on rank 0, the others serving
+    if rank == 0:
+        out.update(_rank0_engine(inp))
+        tserve.stop_workers("cpu")
+    else:
+        records = []
+        out["served"] = tserve.serve("cpu", on_result=lambda op, r: records.append((op, r)))
+        out["records"] = records
+    return out
+
+
+def _failing_scenario(rank, world, inp):
+    """Rank 1 raises inside its first served op; rank 0 goes on calling."""
+    if rank == 0:
+        solver = tserve.EnginePoseSolver("cpu", **CAM)
+        T0, obs = inp["pose"]["even"]
+        for _ in range(3):
+            solver(T0, obs)
+        tserve.stop_workers("cpu")
+        return {}
+
+    def fail(op, result):
+        raise RuntimeError("injected failure on rank 1")
+
+    tserve.serve("cpu", on_result=fail)
+    return {}
+
+
+def _cuda_chunk_scenario(rank, world, inp):
+    """Both ranks on ``cuda:0`` (gloo takes the CUDA tensors): one sharded
+    GBA chunk of ``inp["prob"]``; rank 0 adds the single-device chunk."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    prob = type(inp["prob"])(*(a.to(dev) for a in inp["prob"]))
+    padded = tsba.pad_edges_to_multiple(prob, world)
+    shard = tsba.shard_problem(padded, rank, world)
+    chunk = tsba.make_sharded_gba_chunk(None, **CAM)
+    carry = chunk(shard, gba_init_carry(padded), edge_sums(shard))
+    out = {"carry": [a.cpu() for a in carry]}
+    if rank == 0:
+        from opendlv_perception_vision_orbslam2_tpu_torch.optim.gba import (
+            global_bundle_adjust_chunk,
+        )
+
+        out["single"] = [a.cpu() for a in global_bundle_adjust_chunk(
+            prob, gba_init_carry(prob), **CAM)]
+    return out
+
+
+SCENARIOS = {"main": _main_scenario, "failing": _failing_scenario,
+             "cuda_chunk": _cuda_chunk_scenario}
+
+
+def _worker(scenario, rank, world, directory):
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{directory}/rendezvous", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=60))
+    inp = torch.load(f"{directory}/inputs.pt", weights_only=False)
+    out = SCENARIOS[scenario](rank, world, inp)
+    torch.save(out, f"{directory}/out{rank}.pt")
+    dist.destroy_process_group()
+
+
+# ---- the test side -----------------------------------------------------------
+
+def launch(directory: Path, scenario: str, inputs: dict, timeout=RANK_TIMEOUT_S):
+    """Run ``scenario`` on WORLD ranks; returns their exit codes and output
+    (every rank is ended by the timeout at the latest)."""
+    torch.save(inputs, directory / "inputs.pt")
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parents[1]), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, __file__, scenario, str(r), str(WORLD),
+                               str(directory)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [p.returncode for p in procs], logs
+
+
+def _np_tree(tree):
+    import jax
+
+    return jax.tree.map(np.asarray, tree)
+
+
+def _to_jax(tree):
+    """A port NamedTuple (numpy leaves from ``to_numpy``) as the reference
+    package's NamedTuple of the same name, field by field."""
+    import jax.numpy as jnp
+
+    from opendlv_perception_vision_orbslam2_tpu.models import frame as jframe
+    from opendlv_perception_vision_orbslam2_tpu.models import map_state as jms
+
+    classes = {"MapState": jms.MapState, "FrameState": jframe.FrameState,
+               "Features": jframe.Features}
+    if hasattr(tree, "_fields"):
+        cls = classes[type(tree).__name__]
+        return cls(**{f: _to_jax(getattr(tree, f)) for f in cls._fields})
+    return jnp.asarray(tree)
+
+
+def _jax_mesh(axis):
+    import jax
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:WORLD]), (axis,))
+
+
+def ba_problem(seed=0, n_poses=5, n_pts=200):
+    """``tests/test_ba.py::_make_ba_problem``'s kind of problem without jax:
+    a camera moving forward past random points, 0.4 px noise, 70 % stereo
+    edges, poses 0.03 and points 0.1 off (the first pose at truth)."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim.ba import BAProblem
+
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-12, 12, n_pts), rng.uniform(-4, 4, n_pts),
+                    rng.uniform(6, 40, n_pts)], -1).astype(np.float32)
+    T_gt = torch.stack([tlie.exp_se3(torch.tensor([0.0, 0.0, -0.6 * k, 0.0, 0.0, 0.0]))
+                        for k in range(n_poses)])
+    p_c = torch.einsum("kij,pj->kpi", T_gt[:, :3, :3], torch.from_numpy(pts)) \
+        + T_gt[:, None, :3, 3]
+    kf, pt = torch.nonzero(p_c[..., 2] > 1.0, as_tuple=True)
+    z = p_c[kf, pt, 2]
+    u = CAM["fx"] * p_c[kf, pt, 0] / z + CAM["cx"]
+    v = CAM["fy"] * p_c[kf, pt, 1] / z + CAM["cy"]
+    e = kf.shape[0]
+    noise = torch.from_numpy(rng.normal(0, 0.4, (e, 3)).astype(np.float32))
+    stereo = torch.from_numpy(rng.uniform(size=e) < 0.7)
+    ur = torch.where(stereo, u - CAM["bf"] / z + noise[:, 2], torch.full_like(u, -1.0))
+    T0 = torch.stack([tlie.exp_se3(torch.from_numpy(
+        (rng.standard_normal(6) * 0.03).astype(np.float32))) @ T_gt[k] for k in range(n_poses)])
+    T0[0] = T_gt[0]
+    pts0 = pts + rng.standard_normal(pts.shape).astype(np.float32) * 0.1
+    return BAProblem(
+        T_opt=T0, opt_valid=torch.ones(n_poses, dtype=torch.bool),
+        T_fix=torch.eye(4)[None], fix_valid=torch.zeros(1, dtype=torch.bool),
+        pts=torch.from_numpy(pts0), pt_valid=torch.ones(n_pts, dtype=torch.bool),
+        e_kf=kf.to(torch.int32), e_pt=pt.to(torch.int32),
+        e_uv=torch.stack([u, v], -1) + noise[:, :2], e_ur=ur, e_sigma2=torch.ones(e),
+        e_valid=torch.ones(e, dtype=torch.bool))
+
+
+def _pose_problem(n, seed):
+    """``n`` stereo/mono observations of random points from a known pose,
+    3 % of them moved 40 px, and a start 0.1 rad / 0.1 m off."""
+    rng = np.random.default_rng(seed)
+    p_w = np.stack([rng.uniform(-10, 10, n), rng.uniform(-4, 4, n), rng.uniform(4, 40, n)],
+                   -1).astype(np.float32)
+    T_true = tlie.exp_se3(torch.tensor([0.3, -0.2, 0.4, 0.03, -0.02, 0.05]))
+    p_c = torch.from_numpy(p_w) @ T_true[:3, :3].T + T_true[:3, 3]
+    uv = torch.stack([CAM["fx"] * p_c[:, 0] / p_c[:, 2] + CAM["cx"],
+                      CAM["fy"] * p_c[:, 1] / p_c[:, 2] + CAM["cy"]], -1)
+    uv = uv + torch.from_numpy(rng.normal(0, 0.5, (n, 2)).astype(np.float32))
+    out = rng.random(n) < 0.03
+    uv[torch.from_numpy(out)] += 40.0
+    ur = torch.where(torch.from_numpy(rng.random(n) < 0.7), uv[:, 0] - CAM["bf"] / p_c[:, 2],
+                     torch.full((n,), -1.0))
+    sigma2 = torch.from_numpy(1.2 ** (2 * rng.integers(0, 4, n)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(n) < 0.95)
+    T0 = tlie.exp_se3(torch.tensor([0.1, -0.05, 0.1, 0.01, 0.01, -0.02])) @ T_true
+    return T0, PoseObs(torch.from_numpy(p_w), uv.contiguous(), ur, sigma2, valid)
+
+
+@pytest.fixture(scope="module")
+def pipeline():
+    """The port's StereoSlam over 6 frames of the 512x256 fixture (no group):
+    its poses and keyframes, the map it built, and the inputs of the last
+    frame's ``track_frame_with_map``."""
+    lefts, rights, _, _ = tsyn.render_stereo_sequence(TCFG, **DRIVE)
+    calls = []
+    inner = tslam.track_frame_with_map
+
+    def noted(*args):
+        calls.append(args[:6])
+        return inner(*args)
+
+    tslam.track_frame_with_map = noted
+    try:
+        slam = tslam.StereoSlam(TCFG, device="cpu", **OFF)
+        slam.force_sync_decisions = True
+        assert slam._pose_solver is None        # no process group
+        poses = [slam.process(lefts[i], rights[i], timestamp=i / 10.0).clone()
+                 for i in range(N_FRAMES)]
+        slam.finish()
+    finally:
+        tslam.track_frame_with_map = inner
+    slam._try_adopt_mapping(force=True)
+    return dict(lefts=lefts, rights=rights, poses=torch.stack(poses), n_kf=slam.n_keyframes,
+                n_pt=int(slam.map.pt_valid.sum()), map=slam.map, track_inputs=calls[-1])
+
+
+def _reference_sets(valid, generator=None, n_hypotheses=tpnp.N_HYPOTHESES):
+    """The reference's EPnP-RANSAC draw for this mask (PRNGKey(0))."""
+    import jax
+    import jax.numpy as jnp
+
+    w = jnp.asarray(valid.numpy()).astype(jnp.float32)
+    idx = jax.random.categorical(jax.random.PRNGKey(0), jnp.log(w + 1e-9),
+                                 shape=(n_hypotheses, tpnp.SET_SIZE))
+    return torch.from_numpy(np.array(idx)).to(torch.int64)
+
+
+@pytest.fixture(scope="module")
+def ranks_run(pipeline, tmp_path_factory):
+    """Both ranks' outputs of the main scenario, and its inputs."""
+    from test_ba import _make_ba_problem
+
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils.convert import from_jax_numpy
+
+    _, _, prob = _make_ba_problem(0)
+    sets = []
+    inner = tpnp.sample_sets
+
+    def recorded(valid, generator=None, n_hypotheses=tpnp.N_HYPOTHESES):
+        sets.append(_reference_sets(valid, generator, n_hypotheses))
+        return sets[-1]
+
+    tpnp.sample_sets = recorded
+    try:       # the single-device solve, which draws the sets once
+        single_track = tslam.track_frame_with_map(*pipeline["track_inputs"], TCFG)
+    finally:
+        tpnp.sample_sets = inner
+    map_prob = tgba.extract_global_ba(pipeline["map"], TCFG.orb.scale_factor)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(map_prob.e_kf.shape[0]))
+    map_prob = map_prob._replace(**{f: getattr(map_prob, f)[perm] for f in tsba.EDGE_FIELDS})
+    inputs = dict(ba_prob=from_jax_numpy(_np_tree(prob)), map_prob=map_prob,
+                  pose={"even": _pose_problem(512, 0), "padded": _pose_problem(509, 1)},
+                  map=pipeline["map"], track_inputs=pipeline["track_inputs"], sets=sets[0],
+                  lefts=pipeline["lefts"], rights=pipeline["rights"])
+    directory = tmp_path_factory.mktemp("parallel")
+    rcs, logs = launch(directory, "main", inputs)
+    assert rcs == [0] * WORLD, "\n".join(logs)
+    outs = [torch.load(directory / f"out{r}.pt", weights_only=False) for r in range(WORLD)]
+    return dict(inputs=inputs, outs=outs, logs=logs, prob=prob, single_track=single_track)
+
+
+def _close(out, ref, atol, rtol=0.0, msg=""):
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=rtol, atol=atol,
+                               err_msg=msg)
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---- the SPMD primitives ----------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_pad_and_shard_edges_match_reference(n):
+    """Padding fills and the contiguous edge blocks of ``shard_problem``
+    against the reference's padding and its ``NamedSharding`` shards."""
+    import jax
+
+    from opendlv_perception_vision_orbslam2_tpu.parallel import sharded_ba as jsba
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils.convert import from_jax_numpy
+    from jax.sharding import Mesh
+    from test_ba import _make_ba_problem
+
+    _, _, prob = _make_ba_problem(0)
+    ref = jsba.pad_edges_to_multiple(prob, n)
+    out = tsba.pad_edges_to_multiple(from_jax_numpy(_np_tree(prob)), n)
+    for f in prob._fields:
+        np.testing.assert_array_equal(getattr(out, f).numpy(), np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    mesh = Mesh(np.array(jax.devices()[:n]), ("edges",))
+    placed = jsba.shard_problem(ref, mesh, "edges")
+    for f in tsba.EDGE_FIELDS:
+        shards = sorted(getattr(placed, f).addressable_shards, key=lambda s: s.index[0].start)
+        for r, s in enumerate(shards):
+            np.testing.assert_array_equal(getattr(tsba.shard_problem(out, r, n), f).numpy(),
+                                          np.asarray(s.data), err_msg=f"{f} rank {r}")
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_pad_obs_matches_reference(n):
+    import jax.numpy as jnp
+
+    from opendlv_perception_vision_orbslam2_tpu.optim.pose_opt import PoseObs as JObs
+    from opendlv_perception_vision_orbslam2_tpu.parallel import sharded_pose as jsp
+
+    _, obs = _pose_problem(509, 1)
+    ref = jsp.pad_obs_to_multiple(JObs(*(jnp.asarray(a.numpy()) for a in obs)), n)
+    out = tsp.pad_obs_to_multiple(obs, n)
+    assert out.p_w.shape[0] % n == 0
+    for f, o, r in zip(PoseObs._fields, out, ref):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r), err_msg=f)
+
+
+def test_sharded_gba_matches_reference(ranks_run):
+    import jax
+
+    from opendlv_perception_vision_orbslam2_tpu.parallel import sharded_ba as jsba
+
+    prob = ranks_run["prob"]
+    mesh = _jax_mesh("edges")
+    run = jsba.make_sharded_gba(mesh, "edges", **CAM, n_outer=8, cg_iters=30)
+    T_ref, pts_ref, cost_ref = run(jsba.shard_problem(jsba.pad_edges_to_multiple(prob, WORLD),
+                                                      mesh, "edges"))
+    T_out, pts_out, cost_out = ranks_run["outs"][0]["gba"][0]
+    _close(T_out, jax.device_get(T_ref), 2e-5)
+    _close(pts_out, jax.device_get(pts_ref), 1e-3, 1e-3)
+    _close(cost_out, jax.device_get(cost_ref), 0, 1e-4)
+
+
+def test_sharded_gba_matches_single_device(ranks_run):
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim import gba as tg
+
+    T_one, _, _ = tg.global_bundle_adjust(ranks_run["inputs"]["ba_prob"], **CAM, n_outer=8,
+                                          cg_iters=30)
+    _close(ranks_run["outs"][0]["gba"][0][0], T_one, 5e-3)
+
+
+@pytest.mark.parametrize("case", POSE_CASES)
+def test_sharded_pose_matches_reference(ranks_run, case):
+    """512 observations (256 a rank) and 509 (padded to 510)."""
+    import jax
+    import jax.numpy as jnp
+
+    from opendlv_perception_vision_orbslam2_tpu.optim.pose_opt import PoseObs as JObs
+    from opendlv_perception_vision_orbslam2_tpu.parallel import sharded_pose as jsp
+
+    T0, obs = ranks_run["inputs"]["pose"][case]
+    jobs = jsp.pad_obs_to_multiple(JObs(*(jnp.asarray(a.numpy()) for a in obs)), WORLD)
+    solve = jsp.make_sharded_pose_optimizer(_jax_mesh("obs"), "obs", **CAM)
+    T_ref, inl_ref, n_ref = jax.device_get(solve(jnp.asarray(T0.numpy()), jobs))
+    outs = [o["pose", case][0] for o in ranks_run["outs"]]
+    _close(outs[0][0], T_ref, 1e-4)
+    inliers = torch.cat([o[1] for o in outs])
+    np.testing.assert_array_equal(inliers.numpy(), np.asarray(inl_ref))
+    assert int(outs[0][2]) == int(n_ref) > 0.8 * obs.p_w.shape[0]
+    # the same solver on a one-rank group over all slots
+    T_solo, inl_solo, n_solo = ranks_run["outs"][0]["pose_solo", case]
+    _close(T_solo, T_ref, 1e-4)
+    np.testing.assert_array_equal(inl_solo.numpy(), np.asarray(inl_ref)[:obs.p_w.shape[0]])
+    assert int(n_solo) == int(n_ref)
+
+
+_JAX_CHUNK = {}
+
+
+def _reference_chunk():
+    """The reference's sharded chunk on 2 devices, compiled once here."""
+    from opendlv_perception_vision_orbslam2_tpu.parallel import sharded_ba as jsba
+
+    if not _JAX_CHUNK:
+        mesh = _jax_mesh("edges")
+        _JAX_CHUNK["mesh"] = mesh
+        _JAX_CHUNK["fn"] = jsba.make_sharded_gba_chunk(mesh, "edges", **CAM, n_outer=1,
+                                                       cg_iters=40)
+    return _JAX_CHUNK["mesh"], _JAX_CHUNK["fn"]
+
+
+def _reference_chunks(prob):
+    """``GBA_CHUNKS`` reference chunks over a JAX ``BAProblem``: every carry."""
+    from opendlv_perception_vision_orbslam2_tpu.optim.gba import gba_init_carry as j_init
+    from opendlv_perception_vision_orbslam2_tpu.parallel import sharded_ba as jsba
+
+    mesh, chunk = _reference_chunk()
+    prob = jsba.shard_problem(jsba.pad_edges_to_multiple(prob, WORLD), mesh, "edges")
+    carry, carries = j_init(prob), []
+    for _ in range(GBA_CHUNKS):
+        carry = chunk(prob, carry)
+        carries.append(carry)
+    return carries
+
+
+def _reference_split_chunks(prob):
+    """The reference's chunks over the port's shuffled map problem (kept for
+    the tests that read them)."""
+    from opendlv_perception_vision_orbslam2_tpu.optim.ba import BAProblem as JProb
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils.convert import to_numpy
+
+    if "split" not in _JAX_CHUNK:
+        _JAX_CHUNK["split"] = _reference_chunks(JProb(*(_to_jax(a) for a in to_numpy(prob))))
+    return _JAX_CHUNK["split"]
+
+
+def _reference_igba_chunks(m):
+    """The reference's IncrementalGBA on a 2-device mesh: its extraction,
+    padding, sharding and chunk, as ``IncrementalGBA.__init__`` builds them
+    for a mesh of every device."""
+    from opendlv_perception_vision_orbslam2_tpu.models import global_ba as jgba
+
+    carries = _reference_chunks(jgba.extract_global_ba(m, TCFG.orb.scale_factor))
+    T, pts = carries[-1][0], carries[-1][1]
+    merged = jgba._merge_gba(m, T, pts, m.kf_T_cw, m.kf_id, m.kf_valid, m.pt_valid,
+                             m.pt_first_kf_id)
+    return [_np_tree(c) for c in carries], _np_tree(merged)
+
+
+def _kf_gap(a, b, valid):
+    return np.abs(np.asarray(a) - np.asarray(b))[valid].max()
+
+
+def test_incremental_gba_matches_reference(ranks_run, capsys):
+    """The engine's sharded ``IncrementalGBA`` (rank 0 drives, rank 1
+    serves) against the reference's 2-device chunks on the pipeline map:
+    the first chunk at 1e-3, the merged keyframe poses at ``MERGED_TOL``
+    (printed with -s).  Every live edge lies in rank 0's block here."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils.convert import to_numpy
+
+    m = ranks_run["inputs"]["map"]
+    ref_carries, ref_merged = _reference_igba_chunks(_to_jax(to_numpy(m)))
+    run = ranks_run["outs"][0]["igba"][0]
+    assert len(run["carries"]) == GBA_CHUNKS
+    assert run["n_edges"] % WORLD == 0
+    first, ref_first = run["carries"][0], ref_carries[0]
+    _close(first[0], ref_first[0], 1e-3)
+    _close(first[3], ref_first[3], 0, 1e-3)
+    valid = m.kf_valid.numpy()
+    gap_ref = _kf_gap(run["kf_T"], ref_merged.kf_T_cw, valid)
+    single = _run_igba(m, None)                 # no group here: the single-device path
+    gap_single = _kf_gap(run["kf_T"], single["kf_T"], valid)
+    with capsys.disabled():
+        print(f"\nmerged keyframe poses after {GBA_CHUNKS} chunks: port sharded vs reference "
+              f"sharded {gap_ref:.3g}, port sharded vs port single-device {gap_single:.3g}")
+    assert np.isfinite(run["kf_T"].numpy()).all()
+    assert gap_ref < MERGED_TOL and gap_single < MERGED_TOL
+
+
+def test_incremental_gba_split_merge_matches_reference(ranks_run, capsys):
+    """``IncrementalGBA`` sharded over the map's problem with its edges
+    shuffled, so that both ranks hold live edges, then ``merge``: the merged
+    keyframe poses against the reference's 2-device chunks over the same
+    shuffled problem and its merge, and against the port's single-device
+    run, at ``MERGED_TOL`` (printed with -s)."""
+    from opendlv_perception_vision_orbslam2_tpu.models import global_ba as jgba
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils.convert import to_numpy
+
+    m, prob = ranks_run["inputs"]["map"], ranks_run["inputs"]["map_prob"]
+    run = ranks_run["outs"][0]["igba_split"]
+    padded = tsba.pad_edges_to_multiple(prob, WORLD)
+    live = (padded.e_valid & padded.pt_valid[padded.e_pt.long()]).reshape(WORLD, -1).sum(1)
+    assert run["n_edges"] == padded.e_kf.shape[0] and bool((live > 0).all())
+    assert len(run["carries"]) == GBA_CHUNKS
+    ref = _reference_split_chunks(prob)
+    jm = _to_jax(to_numpy(m))
+    ref_merged = _np_tree(jgba._merge_gba(jm, ref[-1][0], ref[-1][1], jm.kf_T_cw, jm.kf_id,
+                                          jm.kf_valid, jm.pt_valid, jm.pt_first_kf_id))
+    single = _run_igba(m, None, prob=prob)
+    valid = m.kf_valid.numpy()
+    gap_ref = _kf_gap(run["kf_T"], ref_merged.kf_T_cw, valid)
+    gap_single = _kf_gap(run["kf_T"], single["kf_T"], valid)
+    with capsys.disabled():
+        print(f"\nshuffled edges, live a rank {live.tolist()}: merged keyframe poses after "
+              f"{GBA_CHUNKS} chunks: port 2 ranks vs reference 2 devices {gap_ref:.3g}, vs port "
+              f"single-device {gap_single:.3g}")
+    assert gap_ref < MERGED_TOL and gap_single < MERGED_TOL
+
+
+def test_split_gba_chunks_match_reference(ranks_run, capsys):
+    """The map's problem with its edges shuffled, so that both ranks hold
+    live edges, chunked by ``make_sharded_gba_chunk`` on both ranks against
+    the reference's 2-device chunks (the first chunk at 1e-3) and against the
+    port's single-device chunks; the gaps after the last chunk are printed
+    (run with -s): they set phase 20's bound on the merged poses."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim import gba as tg
+
+    prob = ranks_run["inputs"]["map_prob"]
+    r0, r1 = ranks_run["outs"]
+    assert r0["live_edges"] > 0 and r1["live_edges"] > 0
+    ref = _reference_split_chunks(prob)
+    out = r0["chunks"]
+    _close(out[0][0], ref[0][0], 1e-3)
+    _close(out[0][3], ref[0][3], 0, 1e-3)
+    carry = tg.gba_init_carry(prob)
+    sums = tg.edge_sums(prob)
+    for _ in range(GBA_CHUNKS):
+        carry = tg.global_bundle_adjust_chunk(prob, carry, **CAM, sums=sums)
+    valid = prob.opt_valid.numpy()
+    gap_ref = np.abs(out[-1][0].numpy() - np.asarray(ref[-1][0]))[valid].max()
+    gap_single = np.abs(out[-1][0].numpy() - carry[0].numpy())[valid].max()
+    with capsys.disabled():
+        print(f"\nlive edges a rank {r0['live_edges']} / {r1['live_edges']}; keyframe poses "
+              f"after {GBA_CHUNKS} chunks: port 2 ranks vs reference 2 devices {gap_ref:.3g}, "
+              f"vs port single-device {gap_single:.3g}")
+    _close(out[-1][0], carry[0], 1e-3)
+
+
+def test_track_frame_with_map_sharded_matches_reference(ranks_run):
+    """``track_frame_with_map(pose_solver=...)``, rank 0's engine solver with
+    rank 1 serving, against the reference's with its 2-device solver, from
+    the same inputs and RANSAC sets."""
+    import jax
+
+    from opendlv_perception_vision_orbslam2_tpu.models import slam as jslam
+    from opendlv_perception_vision_orbslam2_tpu.parallel import sharded_pose as jsp
+    from opendlv_perception_vision_orbslam2_tpu.utils import config as jconfig
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils.convert import to_numpy
+
+    jcfg = jconfig.SystemConfig(camera=jconfig.CameraConfig(**CAM_CFG),
+                                orb=jconfig.OrbConfig(**ORB), **KW)
+    m, last, last_b, T, vel, cur = ranks_run["inputs"]["track_inputs"]
+    solver = jsp.make_sharded_pose_optimizer(_jax_mesh("obs"), "obs", **CAM)
+    ref = jax.device_get(jslam.track_frame_with_map(
+        _to_jax(to_numpy(m)), _to_jax(to_numpy(last)), _to_jax(last_b.numpy()),
+        _to_jax(T.numpy()), _to_jax(vel.numpy()), _to_jax(to_numpy(cur)), jcfg, solver))
+    out = ranks_run["outs"][0]["track"]
+    _close(out.T_cw, ref.T_cw, 1e-4)
+    for name in ref._fields[1:]:
+        np.testing.assert_array_equal(getattr(out, name).numpy(), np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+    assert int(out.n_inliers) > 50
+    # and within the same bound of the single-device solve
+    _close(out.T_cw, ranks_run["single_track"].T_cw, 1e-4)
+
+
+# ---- determinism -------------------------------------------------------------
+
+def test_ranks_bit_equal(ranks_run):
+    """Every replicated result is the same bits on both ranks: the one-shot
+    GBA, the pose solves, every GBA carry, every engine pose solve."""
+    r0, r1 = ranks_run["outs"]
+    assert _same(r0["gba"][0], r1["gba"][0])
+    for i, (a, b) in enumerate(zip(r0["chunks"], r1["chunks"])):
+        assert _same(a, b), f"chunk {i}"
+    for case in POSE_CASES:
+        assert torch.equal(r0["pose", case][0][0], r1["pose", case][0][0])
+        assert int(r0["pose", case][0][2]) == int(r1["pose", case][0][2])
+    steps = [r for op, r in r1["records"] if op == "gba_step"]
+    mine = [c for run in r0["igba"] + [r0["igba_split"]] for c in run["carries"]]
+    assert len(steps) == len(mine) == 2 * GBA_CHUNKS + REPEAT_CHUNKS
+    for i, (a, b) in enumerate(zip(mine, steps)):
+        assert _same(a, b), f"carry {i}"
+    poses = [r for op, r in r1["records"] if op == "pose"]
+    assert len(poses) >= N_FRAMES           # the track case and every tracked frame
+    assert torch.equal(poses[0][0], r0["track"].T_cw)
+    assert r1["served"] == len(r1["records"])
+
+
+def test_same_run_twice_bit_equal(ranks_run):
+    r0, r1 = ranks_run["outs"]
+    for r in (r0, r1):
+        assert _same(r["gba"][0], r["gba"][1])
+        for case in POSE_CASES:
+            assert _same(r["pose", case][0], r["pose", case][1])
+    a, b = r0["igba"]
+    assert len(b["carries"]) == REPEAT_CHUNKS
+    for x, y in zip(a["carries"], b["carries"]):
+        assert _same(x, y)
+
+
+# ---- the engine ----------------------------------------------------------------
+
+def test_unsharded_paths_unchanged(ranks_run, pipeline):
+    """``IncrementalGBA(sharded=False)`` under a group is bit-equal to the
+    solve without one; without a group nothing shards."""
+    m = ranks_run["inputs"]["map"]
+    alone = _run_igba(m, None, REPEAT_CHUNKS)   # no group here: the single-device path
+    assert tgba.IncrementalGBA(m, TCFG)._sharded is None
+    off = ranks_run["outs"][0]["igba_off"]
+    for x, y in zip(alone["carries"], off["carries"]):
+        assert _same(x, y)
+    assert torch.equal(alone["kf_T"], off["kf_T"]) and torch.equal(alone["pt_pos"], off["pt_pos"])
+    with pytest.raises(RuntimeError, match="more than one rank"):
+        tgba.IncrementalGBA(m, TCFG, sharded=True)
+
+
+def test_engine_on_two_ranks_matches_engine_alone(ranks_run, pipeline):
+    """StereoSlam on rank 0 with rank 1 serving its pose solves, against the
+    same drive without a group."""
+    eng = ranks_run["outs"][0]["engine"]
+    assert eng["n_kf"] == pipeline["n_kf"] >= 2
+    _close(eng["poses"], pipeline["poses"], 1e-3)
+    assert abs(eng["n_pt"] - pipeline["n_pt"]) <= 0.02 * pipeline["n_pt"]
+
+
+def test_engine_switch_follows_reference_rule(ranks_run):
+    """The sharded pose solve needs max_keypoints to split over the ranks;
+    else one line says why and the single-device solve runs."""
+    r0 = ranks_run["outs"][0]
+    assert r0["odd_solver"] is None
+    assert "max_keypoints 1023 does not split over 2 ranks" in r0["odd_said"]
+
+
+def test_serve_and_engine_need_their_ranks():
+    with pytest.raises(RuntimeError, match="ranks 1..D-1"):
+        tserve.serve("cpu")
+
+
+def test_failing_rank_ends_the_run(tmp_path):
+    """A worker that raises inside an op exits nonzero, and rank 0, whose
+    next broadcast finds the peer gone, exits nonzero too: no rank hangs."""
+    rcs, logs = launch(tmp_path, "failing", {"pose": {"even": _pose_problem(512, 0)}},
+                        timeout=120)
+    assert rcs[0] != 0 and rcs[1] != 0, "\n".join(logs)
+    assert "injected failure on rank 1" in logs[1]
+
+
+if __name__ == "__main__":
+    _worker(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
