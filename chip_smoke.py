@@ -115,7 +115,8 @@ and the final line is not printed:
 
 19. the service layer at KITTI size: phase 9's 24 frames written as a
     KITTI-layout directory of PNGs; ``__main__.main`` run in process with
-    deploy/docker-compose.yml's flags and ``--kittiPath`` (no ``--cid``).
+    deploy/docker-compose.yml's flags and ``--kittiPath`` (no ``--cid``),
+    on one rank on any host (phase 21 runs it on several).
     Gates: exit 0, poses.txt 24 rows of 12 finite numbers, map.txt not
     empty, fps.txt 24 lines, never lost, >= 5 keyframes, 1 FAST + 2 gather
     launches a frame, ATE of poses.txt (align=True) <
@@ -162,13 +163,34 @@ and the final line is not printed:
     problem's broadcast, ms/frame beside phase 9's, the collectives a frame
     and the host syncs a frame by site.
 
+21. the service CLI on every visible card: ``__main__.main(argv,
+    ranks=D)`` in process with D = max(2, cards) over phase 19's directory
+    with the deploy flags and ``--cid`` (a recording session): rank 0 here,
+    D - 1 ranks spawned by ``parallel/launch.py`` (gloo on one card, NCCL
+    one rank a card on a host with several).  Gates: exit 0 and every worker
+    exits 0 within ``SERVICE_MULTI_DEADLINE_S``, the plan's backend, the
+    engine on the sharded pose solve, complete dumps, never lost, >= 5
+    keyframes, ATE (align=True) < ``MULTI_ATE_BOUND_M``, one Geolocation a
+    frame equal to its logged pose's, no host sync at the service sites,
+    1 + 2 launches a frame on rank 0 and none on the workers (their
+    reports), collectives a frame > 0; then the lone CLI whose pose solve
+    sums D blocks as the ranks do (``_split_solver``): keyframes within
+    ``MULTI_PARITY_KF_GAP``, ATE within ``MULTI_PARITY_ATE_GAP_M``.  On a
+    host with two or more cards, ``python -m
+    opendlv_perception_vision_orbslam2_tpu_torch --kittiPath=...`` as a
+    subprocess must form one NCCL rank a card, exit 0 and pass the ATE
+    bound; on one card a line says why NCCL was not run.  Prints the
+    backend, ms/frame beside phase 19's, the collectives' calls, their
+    device ms (CUDA events) and host ms, and the ops each worker served.
+
 Phases 3-4 also check the one-eye kernel cases of phases 17-18: one
 ``fast_nms_pyramid`` launch over one eye's 8 levels, and the one-eye ORB
 atlas gather at N = 2000 and at the monocular initialization's 2048.
 
 Then one JSON line of kernel results (each kernel's per-frame numbers, its
 sites, and its launches on phase 15's path (``launches``) and on phases 5,
-9, 12, 17, 18, 19's CLI drive and 20's rank 0), the nvidia-smi line, and the last line
+9, 12, 17, 18, 19's CLI drive, 20's rank 0 and 21's rank 0), the nvidia-smi
+line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports no jax.
 """
 
@@ -1133,7 +1155,9 @@ class _SyncCounter:
         warnings.simplefilter("always")
 
         def show(message, category, filename, lineno, file=None, line=None):
-            if "synchroniz" not in str(message):
+            # the sync's own warning; not the one-time notice, on entering the
+            # mode, that it "does not yet detect all synchronizing operations"
+            if "called a synchronizing" not in str(message):
                 return
             self.n += 1
             site = loop_site = outside = None
@@ -1824,7 +1848,7 @@ def service_phase(cfg, dev, phase12_lat):
     ``Selflocalization`` with a recording session driven by ``KittiRunner``
     over the same directory; the live loop with rectification over rendered
     side-by-side frames.  ``phase12_lat`` is phase 12's seconds per frame.
-    Returns the CLI drive's launch counts."""
+    Returns the CLI drive's launch counts and its ms a frame from fps.txt."""
     import dataclasses
     import tempfile
 
@@ -1886,7 +1910,7 @@ def service_phase(cfg, dev, phase12_lat):
             reset_launches()
             with _SyncCounter() as syncs:
                 watch["syncs"] = syncs
-                rc = cli.main([f"--kittiPath={d}"] + SERVICE_FLAGS)
+                rc = cli.main([f"--kittiPath={d}"] + SERVICE_FLAGS, ranks=1)
             watch["syncs"] = None
             launches = read_launches()
         finally:
@@ -2003,7 +2027,7 @@ def service_phase(cfg, dev, phase12_lat):
     cli.live_loop, od4_mod.OD4Session = recording_loop, _Session
     sel_mod.Selflocalization = Recording
     try:
-        rc = cli.main(SERVICE_FLAGS + SERVICE_LIVE_FLAGS, frames=frames)
+        rc = cli.main(SERVICE_FLAGS + SERVICE_LIVE_FLAGS, frames=frames, ranks=1)
     finally:
         cli.live_loop, od4_mod.OD4Session = inner_loop, inner_session
         sel_mod.Selflocalization = inner_sel
@@ -2027,7 +2051,7 @@ def service_phase(cfg, dev, phase12_lat):
         raise AssertionError(f"service live: exit {rc}, {len(live_poses)} poses, not all finite")
     if grid_l.device.type != "cuda" or not err <= SERVICE_REMAP_TOL:
         raise AssertionError(f"service live: maps on {grid_l.device}, remap card vs CPU {err}")
-    return launches
+    return launches, ms
 
 
 # Phase 20: multi-device SLAM over torch.distributed.  The card's machine has
@@ -2355,7 +2379,7 @@ def _multi_engine(dev, work: Path, solo):
                        split=to_cpu(split), one_ms=one_ms, one_wall=one_wall,
                        alone_ms=alone_ms,
                        alone_wall=alone_wall)
-    serve.stop_workers(dev)
+    serve.stop_workers()
     return out
 
 
@@ -2599,6 +2623,298 @@ def multi_rank_phase(cfg, dev, work: Path, closure_path: Path, slam_ms: float):
     print(f"multi_phase_seconds: single-device references {ref_s:.1f} | ranks (spawn to exit) "
           f"{ranks_s:.1f}", flush=True)
     return r0["launches"]
+
+
+# Phase 21: the service CLI on every visible card.  main(argv, ranks=D) with
+# D = max(2, cards): gloo ranks on a host with one card (NCCL
+# refuses two ranks on one card), NCCL one rank a card on a host with
+# several.  The gates reuse phase 19's and phase 20's: the same frames,
+# flags and dumps, the engine's ATE bound for this world, and the parity
+# with the lone CLI whose pose solve sums D blocks as the ranks do.
+SERVICE_MULTI_CID = 121
+SERVICE_MULTI_DEADLINE_S = 240   # main, its ranks' start and teardown included
+SERVICE_MULTI_CLI_TIMEOUT_S = 300  # the user's command as a subprocess
+
+
+class _CollectiveTimes:
+    """Within it, every collective of the sharded solves on rank 0
+    (``collectives.all_reduce_sum`` and ``serve.broadcast``) is bracketed by
+    CUDA events on the engine's stream: ``ms()`` sums their device time
+    by kind.  Under NCCL the host's ``STATS`` seconds are the enqueue only;
+    these are the collective's time as the engine's stream sees it."""
+
+    def __enter__(self):
+        import torch
+
+        from opendlv_perception_vision_orbslam2_tpu_torch.parallel import collectives, serve
+
+        self.events = {"all_reduce": [], "broadcast": []}
+        self.inner = (collectives.all_reduce_sum, serve.broadcast)
+
+        def timed(fn, kind):
+            def run(x, *args):
+                if not x.is_cuda:
+                    return fn(x, *args)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn(x, *args)
+                b.record()
+                self.events[kind].append((a, b))
+                return out
+            return run
+
+        collectives.all_reduce_sum = timed(self.inner[0], "all_reduce")
+        serve.broadcast = timed(self.inner[1], "broadcast")
+        return self
+
+    def __exit__(self, *exc):
+        from opendlv_perception_vision_orbslam2_tpu_torch.parallel import collectives, serve
+
+        collectives.all_reduce_sum, serve.broadcast = self.inner
+
+    def ms(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.events.items()}
+
+
+def _dumps_complete(d: Path, n: int):
+    """poses.txt's poses if the run left ``n`` rows of 12 finite numbers,
+    a map.txt with points and ``n`` fps.txt lines in ``d``, else None."""
+    import numpy as np
+
+    path = d / "poses.txt"
+    poses = path.read_text().strip().splitlines() if path.exists() else []
+    if len(poses) != n or any(len(r.split()) != 12 for r in poses):
+        return None
+    est = read_kitti_poses(d / "poses.txt")
+    fps = (d / "fps.txt").read_text().strip().splitlines()
+    if not all(np.isfinite(T).all() for T in est) or (d / "map.txt").stat().st_size == 0 \
+            or len(fps) != n:
+        return None
+    return est
+
+
+def service_multi_phase(cfg, dev, service_ms):
+    """Phase 21: the CLI on D = max(2, cards) ranks in process (rank 0 here,
+    D - 1 spawned by ``parallel/launch.py``) over phase 19's directory, the
+    lone CLI whose pose solve sums D blocks as the ranks do, and on a host
+    with several cards the user's command as a subprocess.  ``service_ms``
+    is phase 19's ms a frame from fps.txt.  Returns rank 0's launch counts."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from opendlv_perception_vision_orbslam2_tpu_torch import __main__ as cli
+    from opendlv_perception_vision_orbslam2_tpu_torch.io import od4 as od4_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.io.messages import Geolocation
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import selflocalization as sel_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.parallel import collectives, launch, serve
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic, trajectory
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils.config import config_from_flags
+
+    t0 = time.perf_counter()
+    gc.collect()
+    n_cards = torch.cuda.device_count()
+    world = max(2, n_cards)
+    backend = launch.NCCL if n_cards >= world else launch.GLOO
+    lefts, rights, gt, _ = synthetic.render_stereo_sequence(cfg, **SERVICE_DRIVE)
+    n = lefts.shape[0]
+    inner_sel, inner_ranks, inner_session = (sel_mod.Selflocalization, launch.LocalRanks,
+                                             od4_mod.OD4Session)
+    made, ranks_made, sessions, lost, posted = [], [], [], [], []
+    watch = {"syncs": None, "solver": None}
+
+    class Recording(inner_sel):
+        """Keeps the pipeline and each frame's lost flag and logged pose;
+        counts the host syncs inside ``track`` in ``watch["syncs"]`` over
+        frames ``MULTI_SYNC_FRAMES`` (the sync debug mode also warns at each
+        of gloo's staging copies, in gloo's threads, which slows every frame
+        it is on); with ``watch["solver"]`` the engine's pose solve is
+        replaced by it."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            if watch["solver"] is not None:
+                self.slam._pose_solver = watch["solver"]
+            made.append(self)
+
+        def track(self, *args, **kwargs):
+            if watch["syncs"] is not None and self.frame_count in MULTI_SYNC_FRAMES:
+                with watch["syncs"]:
+                    T = super().track(*args, **kwargs)
+            else:
+                T = super().track(*args, **kwargs)
+            lost.append(self.slam.lost)
+            posted.append(self.slam.trajectory[-1])
+            return T
+
+    class Kept(inner_ranks):
+        def __init__(self, plan):
+            super().__init__(plan)
+            ranks_made.append(self)
+
+    def session(*args, **kwargs):
+        sessions.append(_Session())
+        return sessions[-1]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        base = Path(tmp) / "kitti"
+        write_kitti_dir(base, lefts, rights, cfg.camera.fps)
+        dirs = {k: Path(tmp) / k for k in ("ranks", "witness", "cli")}
+        for d in dirs.values():
+            shutil.copytree(base, d)
+
+        # -- 21a. main on D ranks, in process ----------------------------------
+        argv = [f"--kittiPath={dirs['ranks']}", f"--cid={SERVICE_MULTI_CID}"] + SERVICE_FLAGS
+        sel_mod.Selflocalization, launch.LocalRanks = Recording, Kept
+        od4_mod.OD4Session = session
+        try:
+            reset_launches()
+            collectives.reset_stats()
+            t1 = time.perf_counter()
+            syncs = watch["syncs"] = _SyncCounter()
+            with _CollectiveTimes() as coll:
+                rc = cli.main(argv, ranks=world)
+            wall_s = time.perf_counter() - t1
+            watch["syncs"] = None
+            launches = read_launches()
+            stats = dict(collectives.STATS)
+            coll_ms = coll.ms()
+        finally:
+            sel_mod.Selflocalization, launch.LocalRanks = inner_sel, inner_ranks
+            od4_mod.OD4Session = inner_session
+        ranks = ranks_made[0]
+        slam = made[0].slam
+        est = _dumps_complete(dirs["ranks"], n)
+        ate = trajectory.ate_rmse(est, list(gt)) if est is not None else float("nan")
+        fps_rows = [ln.split() for ln in (dirs["ranks"] / "fps.txt").read_text().split("\n")
+                    if ln.strip()]
+        ms = np.array([1e3 / float(f) for f, _ in fps_rows])
+        span = slice(1, n)
+        service_sites = {k: v for k, v in syncs.sites.items()
+                         if k.split(":")[0] in SERVICE_FILES}
+        worker_launches = {r: rep["launches"] for r, rep in ranks.reports.items()}
+        served = {r: rep["served"] for r, rep in ranks.reports.items()}
+        scfg = config_from_flags(argv)
+        ref = (scfg.ref_latitude, scfg.ref_longitude, scfg.start_heading)
+        geo = [m for m in sessions[0].sent if isinstance(m, Geolocation)]
+        want = [sel_mod.pose_to_geolocation(T.cpu().numpy(), *ref).encode() for T in posted]
+        print(f"service_multi: main(python -m ... --kittiPath=<{n} PNG pairs 1241x376> + "
+              f"deploy flags, ranks={world}) on {n_cards} card(s): {launch.describe(ranks.plan)}"
+              f" | exit {rc}, worker exit codes {ranks.exit_codes}, {wall_s:.1f} s from the call "
+              f"to the last rank's exit (deadline {SERVICE_MULTI_DEADLINE_S} s) | keyframes "
+              f"{slam.n_keyframes} | map points {int(slam.map.pt_valid.sum())} | lost at "
+              f"{[i for i, x in enumerate(lost) if x]} | ATE of poses.txt {ate:.4f} m (align=True,"
+              f" bound {MULTI_ATE_BOUND_M:g}) | ms/frame from fps.txt over frames 1-{n - 1}: "
+              f"median {np.median(ms[span]):.2f} worst {ms[span].max():.2f} at frame "
+              f"{int(np.argmax(ms[span])) + 1}, frames 0-3 {np.round(ms[:4], 1).tolist()} "
+              f"(phase 19, one process: median {np.median(service_ms[span]):.2f} worst "
+              f"{service_ms[span].max():.2f} at frame {int(np.argmax(service_ms[span])) + 1}, "
+              f"frames 0-3 {np.round(service_ms[:4], 1).tolist()}) | collectives a frame on "
+              f"rank 0: all-reduce "
+              f"{stats['all_reduce'] / n:.2f}, device {coll_ms['all_reduce'] / n:.2f} ms (CUDA "
+              f"events), host {1e3 * stats['all_reduce_s'] / n:.2f} ms; broadcast "
+              f"{stats['broadcast'] / n:.2f}, device {coll_ms['broadcast'] / n:.2f} ms, host "
+              f"{1e3 * stats['broadcast_s'] / n:.2f} ms | ops served by the workers {served} | "
+              f"Geolocations {len(geo)} | host syncs in track over frames "
+              f"{MULTI_SYNC_FRAMES.start}-{MULTI_SYNC_FRAMES.stop - 1}: {syncs.sites}, at the "
+              f"service sites {sum(service_sites.values())} | launches/frame rank 0 "
+              f"{per_frame(launches, n)};"
+              f" workers {worker_launches}", flush=True)
+        if rc != 0 or ranks.exit_codes != [0] * (world - 1) or \
+                not wall_s < SERVICE_MULTI_DEADLINE_S:
+            raise AssertionError(f"service multi: exit {rc}, worker exit codes "
+                                 f"{ranks.exit_codes}, {wall_s:.1f} s")
+        if ranks.plan.world != world or ranks.plan.backend != backend:
+            raise AssertionError(f"service multi: formed {launch.describe(ranks.plan)}, want "
+                                 f"{world} ranks over {backend}")
+        if not isinstance(slam._pose_solver, serve.EnginePoseSolver):
+            raise AssertionError("service multi: the engine did not take the sharded pose solve")
+        if est is None:
+            raise AssertionError("service multi: poses.txt, map.txt or fps.txt incomplete")
+        if any(lost) or slam.lost or slam.n_keyframes < 5:
+            raise AssertionError(f"service multi: lost at {[i for i, x in enumerate(lost) if x]}"
+                                 f", {slam.n_keyframes} keyframes (need >= 5)")
+        if not ate < MULTI_ATE_BOUND_M:
+            raise AssertionError(f"service multi: ATE {ate:.4f} m >= {MULTI_ATE_BOUND_M} m")
+        if [m.encode() for m in geo] != want or len(geo) != n:
+            raise AssertionError(f"service multi: {len(geo)} Geolocations, not one a frame "
+                                 "equal to its logged pose's")
+        if service_sites:
+            raise AssertionError(f"service multi: host syncs at the service sites "
+                                 f"{service_sites}")
+        expected = {"fast_nms": 0, "fast_nms_pyramid": n, "gather_patches": n,
+                    "gather_patches_multi": n}
+        if launches != expected or len(worker_launches) != world - 1 or \
+                any(any(v.values()) for v in worker_launches.values()):
+            raise AssertionError(f"service multi: launches rank 0 {launches} (expected "
+                                 f"{expected}), workers {worker_launches} (expected none)")
+        if not stats["all_reduce"] > 0:
+            raise AssertionError("service multi: rank 0 made no collective")
+
+        # -- 21b. the lone CLI whose pose solve sums D blocks ------------------
+        del made[:], lost[:], posted[:]
+        watch["solver"] = _split_solver(cfg.camera, world)
+        sel_mod.Selflocalization = Recording
+        try:
+            rc_w = cli.main([f"--kittiPath={dirs['witness']}"] + SERVICE_FLAGS, ranks=1)
+        finally:
+            sel_mod.Selflocalization = inner_sel
+            watch["solver"] = None
+        wslam = made[0].slam
+        w_est = _dumps_complete(dirs["witness"], n)
+        w_ate = trajectory.ate_rmse(w_est, list(gt)) if w_est is not None else float("nan")
+        gap = float(np.abs(np.stack(w_est) - np.stack(est)).max()) if w_est is not None \
+            else float("nan")
+        print(f"service_multi_witness: the lone CLI (no group) whose pose solve sums {world} "
+              f"blocks as the ranks do (_split_solver) | exit {rc_w} | keyframes "
+              f"{wslam.n_keyframes} vs {slam.n_keyframes} on {world} ranks (bound "
+              f"{MULTI_PARITY_KF_GAP} apart) | ATE {w_ate:.4f} vs {ate:.4f} m (bound "
+              f"{MULTI_PARITY_ATE_GAP_M:g} apart) | poses.txt max entry gap {gap:.3g}",
+              flush=True)
+        if rc_w != 0 or w_est is None:
+            raise AssertionError(f"service multi witness: exit {rc_w}, dumps incomplete")
+        if not (abs(wslam.n_keyframes - slam.n_keyframes) <= MULTI_PARITY_KF_GAP
+                and abs(w_ate - ate) < MULTI_PARITY_ATE_GAP_M):
+            raise AssertionError(f"service multi: {world} ranks ({slam.n_keyframes} keyframes, "
+                                 f"ATE {ate:.4f} m) and the split witness "
+                                 f"({wslam.n_keyframes}, {w_ate:.4f} m) part")
+
+        # -- 21c. the user's command on every card -----------------------------
+        if n_cards < 2:
+            print(f"service_multi_nccl: not run: {n_cards} card visible; NCCL takes one rank a "
+                  "card, so `python -m opendlv_perception_vision_orbslam2_tpu_torch` forms no "
+                  "group on this host (phase 19 ran it alone)", flush=True)
+        else:
+            repo = Path(__file__).resolve().parent
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [str(repo), os.environ.get("PYTHONPATH", "")]))
+            t1 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "opendlv_perception_vision_orbslam2_tpu_torch",
+                 f"--kittiPath={dirs['cli']}"] + SERVICE_FLAGS, cwd=repo, env=env,
+                capture_output=True, text=True, timeout=SERVICE_MULTI_CLI_TIMEOUT_S)
+            cli_s = time.perf_counter() - t1
+            formed = [ln for ln in run.stdout.splitlines() if " ranks (" in ln]
+            c_est = _dumps_complete(dirs["cli"], n)
+            c_ate = trajectory.ate_rmse(c_est, list(gt)) if c_est is not None else float("nan")
+            want_line = (f"opendlv_perception_vision_orbslam2_tpu_torch: {n_cards} ranks "
+                         f"({launch.NCCL})")
+            print(f"service_multi_nccl: python -m opendlv_perception_vision_orbslam2_tpu_torch "
+                  f"--kittiPath=<{n} PNG pairs> + deploy flags as a subprocess on {n_cards} cards"
+                  f" | exit {run.returncode} in {cli_s:.1f} s | formed: {formed} | ATE "
+                  f"{c_ate:.4f} m | {run.stdout.strip().splitlines()[-1:]}", flush=True)
+            if run.returncode != 0 or not any(ln.startswith(want_line) for ln in formed) or \
+                    c_est is None or not c_ate < MULTI_ATE_BOUND_M:
+                raise AssertionError(f"service multi CLI: exit {run.returncode}, formed "
+                                     f"{formed}, ATE {c_ate}; stderr tail "
+                                     f"{run.stderr[-2000:]}")
+    print(f"service_multi_phase_seconds: phase 21 {time.perf_counter() - t0:.1f}", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -2990,13 +3306,16 @@ def main() -> int:
 
     # -- 19. the service layer: the CLI, publishing, the live loop -----------
     t_phase = time.perf_counter()
-    service_launches = service_phase(cfg, dev, reloc_lat)
+    service_launches, service_ms = service_phase(cfg, dev, reloc_lat)
     print(f"service_phase_seconds: phase 19 {time.perf_counter() - t_phase:.1f}", flush=True)
 
     # -- 20. multi-device SLAM: 2 gloo ranks on the card ------------------------
     t_phase = time.perf_counter()
     multi_launches = multi_rank_phase(cfg, dev, work, work / "closure.pt", slam_ms)
     print(f"multi_phase_seconds: phase 20 {time.perf_counter() - t_phase:.1f}", flush=True)
+
+    # -- 21. the service CLI on every visible card ------------------------------
+    service_multi_launches = service_multi_phase(cfg, dev, service_ms)
 
     kernels = [
         dict(name=name, route="cuda",
@@ -3008,7 +3327,9 @@ def main() -> int:
              launches_rgbd=kernel_launches(rgbd_launches, name),
              launches_mono=kernel_launches(mono_launches, name),
              launches_service=kernel_launches(service_launches, name),
-             launches_multi=kernel_launches(multi_launches, name), **results[name])
+             launches_multi=kernel_launches(multi_launches, name),
+             launches_service_multi=kernel_launches(service_multi_launches, name),
+             **results[name])
         for name in ("fast_nms", "gather_patches")
     ]
     print(json.dumps({"kernels": kernels}))

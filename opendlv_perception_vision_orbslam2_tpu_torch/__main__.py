@@ -9,8 +9,12 @@ utils/config.py), so the docker-compose command line ports unchanged.
 
     python -m opendlv_perception_vision_orbslam2_tpu_torch --kittiPath=DIR ...
 
-runs on the CUDA device; from Python, ``main(argv, device="cpu")`` runs on
-the CPU.
+runs on every visible card, as the reference CLI takes every local device:
+with D > 1 cards, this process (rank 0) runs ``Selflocalization`` on
+``cuda:0`` while D - 1 spawned ranks serve its sharded pose solve and GBA
+on ``cuda:1..D-1`` over NCCL (``parallel/launch.py``); with one card no
+group is formed.  From Python, ``main(argv, device="cpu")`` runs on the
+CPU, and ``ranks=`` sets the rank count (tests and ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -67,10 +71,12 @@ def live_loop(pipeline, frames, raw_width: int, rect_maps=None, resize_to=None) 
     pipeline.shutdown()
 
 
-def main(argv=None, device="cuda", frames=None) -> int:
+def main(argv=None, device="cuda", frames=None, ranks=None) -> int:
     """Run the service.  ``frames`` is the live mode's frame source (an
     iterable of ``(gray frame [H, W], timestamp)``); None reads the camera
-    proxy's shared memory (``shared_memory_frames``)."""
+    proxy's shared memory (``shared_memory_frames``).  ``ranks``: None takes
+    one rank a visible card on ``cuda`` and one rank on the CPU; only rank 0
+    (this process) reads frames, publishes and writes the dumps."""
     argv = sys.argv[1:] if argv is None else argv
     flags = parse_flags(argv)
     required = ("cid", "name", "width", "height", "bpp")
@@ -147,6 +153,15 @@ def main(argv=None, device="cuda", frames=None) -> int:
 
         vocab = load_text_vocabulary(config.voc_file_path)
 
+    from .parallel import launch
+
+    # the group forms before the engine, which shards over it by itself
+    with launch.local_ranks(device, ranks) as device:
+        return _run(config, raw_config, flags, vocab, rect_maps, frames, device)
+
+
+def _run(config, raw_config, flags, vocab, rect_maps, frames, device) -> int:
+    """Rank 0's service: the engine, the dataset or live loop, the dumps."""
     from .io.od4 import NullSession, OD4Session
     from .models.selflocalization import Selflocalization
 

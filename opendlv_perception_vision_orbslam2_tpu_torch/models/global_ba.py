@@ -120,8 +120,8 @@ class IncrementalGBA:
                 raise RuntimeError("IncrementalGBA(sharded=True) needs a process group of "
                                    "more than one rank")
             cam = config.camera
-            self._sharded = EngineGBA(self.prob, m.kf_valid.device, fx=cam.fx, fy=cam.fy,
-                                      cx=cam.cx, cy=cam.cy, bf=cam.bf, cg_iters=cg_iters)
+            self._sharded = EngineGBA(self.prob, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
+                                      bf=cam.bf, cg_iters=cg_iters)
             self.prob, self.sums = self._sharded.prob, None   # rank 0 sums its own shard
             self.carry = self._sharded.carry
         else:

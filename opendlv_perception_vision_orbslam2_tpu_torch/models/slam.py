@@ -515,8 +515,7 @@ class StereoSlam:
                   "local-map pose solve runs on rank 0 alone")
             return None
         cam = self.config.camera
-        return EnginePoseSolver(self.device, fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy,
-                                bf=cam.bf)
+        return EnginePoseSolver(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf)
 
     # ---- state --------------------------------------------------------------
 

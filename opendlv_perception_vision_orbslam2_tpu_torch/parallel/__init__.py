@@ -8,11 +8,13 @@ Counterpart of the reference package's ``parallel/`` (``shard_map`` +
                  through, with counters (calls, host seconds)
   sharded_ba     the SPMD primitives of the global BA: each rank passes its
   sharded_pose   own block of edges or observations, every reduction is one
-                 ``all_reduce(SUM)`` on the caller's group, and every rank
-                 gets the same bits back
+                 ``all_reduce_sum`` on the caller's group (rank order),
+                 and every rank gets the same bits back
   serve          the engine hookup: rank 0 runs the one ``StereoSlam`` /
                  ``MonocularSlam``, ranks 1..D-1 run ``serve``, which takes
-                 each op rank 0 broadcasts and joins its reductions
+                 each op rank 0 posts and joins its reductions
+  launch         the CLI's ranks: one a visible card (NCCL), spawned by
+                 rank 0, the caller's process, and torn down with it
 
 Why one engine and workers, not one engine a rank as every JAX process runs
 the same program: the engine adopts its asynchronous stages (mapping, loop
@@ -23,7 +25,9 @@ different numbers of collective calls, and hang the group.  The reference
 package's production path is the same shape: one process owns every device,
 the engine runs once, and only the edge reductions spread over the mesh.
 
-The process group is the caller's: the package never calls
-``init_process_group``.  Tested with gloo (on the CPU, and with several ranks
-on one card); NCCL, one rank a card, is untested.
+The CLI forms the group itself (``launch.LocalRanks``: gloo on the CPU or
+with several ranks on one card, NCCL one rank a card); other callers may
+form the default group themselves and call ``serve`` on ranks 1..D-1.  Only
+local cards: nothing here forms a group across hosts, as the reference CLI
+takes only its host's devices.
 """

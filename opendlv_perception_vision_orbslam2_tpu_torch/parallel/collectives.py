@@ -3,10 +3,19 @@
 ``all_reduce_sum`` takes the place of the ``psum`` in the reference
 package's ``parallel/sharded_ba.py`` and ``parallel/sharded_pose.py``:
 every rank passes its partial sum and gets the total, the same bits on
-every rank.  ``broadcast`` moves rank 0's operands to the workers
+every rank, added in rank order whatever the backend (an all-gather, then
+the sum), so D ranks give the bits of one process adding the D blocks in
+that order; NCCL's own all-reduce adds them in an order of its choosing,
+which moved the CLI's trajectory on four cards by 12 mm of ATE against such
+a process (``chip_smoke.py`` phase 21).  ``broadcast`` moves rank 0's operands to the workers
 (``serve.py``).  ``STATS`` counts the calls of each kind and the host
-seconds spent in them; with gloo on CUDA tensors each call stages through
-host memory and waits for the device, so each is one host round trip.
+seconds spent in them.  What those seconds are depends on the backend:
+under gloo (CPU tensors, or CUDA tensors staged through host memory, which
+waits for the device) each call returns when the collective is done, so
+they are its round trip; under NCCL a call returns once the collective is
+enqueued on the device, so they are the enqueue only, and the collective's
+time is a device time (CUDA events around it, as ``chip_smoke.py`` phase
+21 takes them).
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 #: calls and host seconds of each kind since the last :func:`reset_stats`
+#: (host seconds: a round trip under gloo, the enqueue under NCCL)
 STATS = {"all_reduce": 0, "broadcast": 0, "all_reduce_s": 0.0, "broadcast_s": 0.0}
 
 
@@ -38,14 +48,18 @@ def rank_and_size(group=None) -> tuple[int, int]:
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """The sum of every rank's ``x``, on every rank.  Reduces a contiguous
-    tensor in place (a non-contiguous one through a copy) and returns it."""
+    """The sum of every rank's ``x``, on every rank: rank 0's + rank 1's +
+    ... in that order (a new tensor; ``x`` is left as it is)."""
     y = x.contiguous()
     t = time.perf_counter()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y, group=group)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
     STATS["all_reduce_s"] += time.perf_counter() - t
     STATS["all_reduce"] += 1
-    return y
+    return total
 
 
 def broadcast(x: torch.Tensor) -> torch.Tensor:

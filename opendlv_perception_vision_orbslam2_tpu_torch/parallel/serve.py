@@ -5,23 +5,34 @@ where one process owns every device, the engine runs once and only the edge
 reductions spread over the mesh (``models/slam.py`` and
 ``models/global_ba.py`` there).  Here rank 0 of the default process group
 runs ``StereoSlam`` / ``MonocularSlam``; ranks 1..D-1 call :func:`serve`.
-Each sharded solve on rank 0 first broadcasts an op header (a small int64
-tensor: the op code, sizes, the GBA's CG steps and the camera's float64
-parameters by their bits), then its operands; every rank computes its shard and joins the same all-reduces.
-:func:`stop_workers` ends the serve loops.  The engine does not run a copy
-per rank: its asynchronous stages are adopted when a CUDA event has
-completed, which two processes reach at different frames, so replicas would
-make different collective calls and hang the group.
+Each sharded solve on rank 0 first posts an op header in the group's store
+(a small int64 vector: the op code, sizes, the GBA's CG steps and the
+camera's float64 parameters by their bits, one key a worker and op), then
+broadcasts its operands; every rank computes its shard and joins the same
+all-reduces.  :func:`stop_workers` ends the serve loops.  The engine does
+not run a copy per rank: its asynchronous stages are adopted when a CUDA
+event has completed, which two processes reach at different frames, so
+replicas would make different collective calls and hang the group.
 
-Launch: start D processes with ``spawn`` (not ``fork``: CUDA), form the
-default group (gloo with several ranks on one card; NCCL one rank a card, a
-``cpu:gloo,cuda:nccl`` group for both), then on rank 0 build the engine,
-drive it, and call ``stop_workers(device)`` when done; on the others call
-``serve(device)``.  Everything here runs on the default group and the
-reference's schedules (the pose solve's 4 rounds of 10 steps; one LM
-iteration a GBA chunk, the first pose held).  A rank that raises exits; the collective the others wait
-in then fails (the peer's connection closes) or times out at the group's
-timeout, so no rank stays blocked.
+Why the header goes through the store: a worker waits for the next op for
+as long as rank 0 has none to send (a parked vehicle's camera pauses for
+minutes), and a collective that waits longer than the group's timeout
+fails (NCCL's watchdog ends the process).  The store's wait is re-armed
+after each of its timeouts (``DistStoreError``), so an idle period of any
+length passes, while the data collectives keep the group's bounded timeout.
+A worker ended during the run is recorded at ``FAILED_KEY`` (by
+``launch.LocalRanks``), and rank 0's next op raises with it.
+
+Launch: ``parallel/launch.py`` (the CLI, one rank a card: NCCL in a
+``cpu:gloo,cuda:nccl`` group; gloo on the CPU or with several ranks on one
+card), or any code that forms the default group itself, starting ranks with
+``spawn``; then rank 0 builds the engine, drives it and calls
+``stop_workers()``, and the others call ``serve(device)``.  Everything here
+runs on the default group and the reference's schedules (the pose solve's 4
+rounds of 10 steps; one LM iteration a GBA chunk, the first pose held).  A
+rank that raises exits; the collective the others wait in then fails (the
+peer's connection closes) or times out at the group's timeout, so no rank
+stays blocked.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from ..optim.ba import BAProblem
 from ..optim.gba import edge_sums, gba_init_carry
@@ -42,22 +54,48 @@ _OP_NAMES = {OP_STOP: "stop", OP_POSE: "pose", OP_GBA_INIT: "gba_init",
              OP_GBA_STEP: "gba_step"}
 HEADER_LEN = 12
 _N_INTS = 6             # header slots 1..6 hold integers, 7..11 the camera's float64 bits
+_SEQ_KEY = "serve/seq"          # rank 0's op count
+_OP_KEY = "serve/op/{rank}/{seq}"
+#: set (to a message) when a worker ended during the run; rank 0's next op raises it
+FAILED_KEY = "serve/failed"
 
 
-def _send_header(op: int, ints, cam, device):
-    if rank_and_size()[0] != 0:
+def _store():
+    """The store the default group was formed with (the rendezvous's own
+    keys, where ``launch.LocalRanks`` writes ``FAILED_KEY``)."""
+    return dist.distributed_c10d._get_default_store().underlying_store
+
+
+def _send_header(op: int, ints=(), cam=()):
+    rank, world = rank_and_size()
+    if rank != 0:
         raise RuntimeError("the engine's sharded solves run on rank 0; the other ranks "
                            "call parallel.serve.serve")
+    store = _store()
+    if op != OP_STOP and store.check([FAILED_KEY]):
+        raise RuntimeError(store.get(FAILED_KEY).decode())
     h = torch.zeros((HEADER_LEN,), dtype=torch.int64)
     h[0] = op
     h[1:1 + len(ints)] = torch.tensor(list(ints), dtype=torch.int64)
     if cam:
         h[1 + _N_INTS:] = torch.tensor(list(cam), dtype=torch.float64).view(torch.int64)
-    broadcast(h.to(device))
+    seq = store.add(_SEQ_KEY, 1) - 1
+    for r in range(1, world):
+        store.set(_OP_KEY.format(rank=r, seq=seq), h.numpy().tobytes())
 
 
-def _recv_header(device):
-    h = broadcast(torch.zeros((HEADER_LEN,), dtype=torch.int64, device=device)).cpu()
+def _recv_header(store, rank: int, seq: int):
+    """Worker ``rank``'s op number ``seq``, however long rank 0 takes to send
+    it."""
+    key = _OP_KEY.format(rank=rank, seq=seq)
+    while True:
+        try:
+            store.wait([key])
+            break
+        except dist.DistStoreError:     # the store's timeout: rank 0 is idle
+            continue
+    h = torch.frombuffer(bytearray(store.get(key)), dtype=torch.int64)
+    store.delete_key(key)
     return int(h[0]), h[1:1 + _N_INTS].tolist(), h[1 + _N_INTS:].view(torch.float64).tolist()
 
 
@@ -97,16 +135,15 @@ class EnginePoseSolver:
     """The engine's local-map pose solve sharded over the default group's
     ranks (``track_frame_with_map``'s ``pose_solver``): ``fn(T1, obs) -> (T,
     inliers, n_inliers)``, called on rank 0 while the others serve.  Per
-    call: a header and one operand broadcast, 40 all-reduces of the normal
-    system and one of the inlier mask."""
+    call: a header in the store, one operand broadcast, 40 all-reduces of
+    the normal system and one of the inlier mask."""
 
-    def __init__(self, device, *, fx, fy, cx, cy, bf):
-        self.device = torch.device(device)
+    def __init__(self, *, fx, fy, cx, cy, bf):
         self.cam = _camera(fx, fy, cx, cy, bf)
 
     def __call__(self, T0, obs: PoseObs):
         k = obs.valid.shape[0]
-        _send_header(OP_POSE, (k,), self.cam, self.device)
+        _send_header(OP_POSE, (k,), self.cam)
         return _pose_shard(broadcast(_pack_pose(T0, obs)), k, self.cam)
 
 
@@ -158,21 +195,20 @@ class EngineGBA(ShardedGBA):
 
     _next_handle = 0
 
-    def __init__(self, prob: BAProblem, device, *, fx, fy, cx, cy, bf, cg_iters: int):
+    def __init__(self, prob: BAProblem, *, fx, fy, cx, cy, bf, cg_iters: int):
         EngineGBA._next_handle += 1
         self.handle = EngineGBA._next_handle
-        self.device = torch.device(device)
         cam = _camera(fx, fy, cx, cy, bf)
         Ko, n_fix, P, E = (prob.T_opt.shape[0], prob.T_fix.shape[0], prob.pts.shape[0],
                            prob.e_kf.shape[0])
-        _send_header(OP_GBA_INIT, (self.handle, Ko, n_fix, P, E, cg_iters), cam, self.device)
+        _send_header(OP_GBA_INIT, (self.handle, Ko, n_fix, P, E, cg_iters), cam)
         broadcast(torch.cat([getattr(prob, f).reshape(-1) for f in _FLOAT_FIELDS]))
         broadcast(torch.cat([getattr(prob, f).reshape(-1).to(torch.int32)
                              for f in _INT_FIELDS]))
         super().__init__(prob, cam, cg_iters)
 
     def step(self):
-        _send_header(OP_GBA_STEP, (self.handle,), (), self.device)
+        _send_header(OP_GBA_STEP, (self.handle,))
         return super().step()
 
 
@@ -189,10 +225,11 @@ def serve(device, on_result=None) -> int:
     if rank == 0 or world < 2:
         raise RuntimeError("serve() runs on ranks 1..D-1 of a group of D > 1 ranks; "
                            "rank 0 runs the engine")
+    store = _store()
     gba_handle, gba = None, None
     served = 0
     while True:
-        op, ints, cam = _recv_header(device)
+        op, ints, cam = _recv_header(store, rank, served)
         if op == OP_STOP:
             return served
         if op == OP_POSE:
@@ -222,6 +259,24 @@ def serve(device, on_result=None) -> int:
             on_result(_OP_NAMES[op], result)
 
 
-def stop_workers(device):
+def warm_up(device) -> None:
+    """One pose solve on this rank alone over a small made-up problem, so
+    that the first op rank 0 sends does not wait for this rank's first use
+    of the device (its kernels' loading, the solver libraries' handles):
+    without it the CLI's frame 1 on two ranks of one H100 took 4.8 s, alone
+    0.57 s (``chip_smoke.py`` phase 21)."""
+    device = torch.device(device)
+    k = 64
+    obs = PoseObs(p_w=torch.tensor([0.0, 0.0, 5.0], device=device).repeat(k, 1),
+                  uv=torch.zeros((k, 2), device=device), u_right=torch.zeros(k, device=device),
+                  sigma2=torch.ones(k, device=device),
+                  valid=torch.ones(k, dtype=torch.bool, device=device))
+    sharded_pose_solve(torch.eye(4, device=device), obs, _camera(500, 500, 0, 0, 50),
+                       lambda x: x)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def stop_workers():
     """Rank 0: end every rank's :func:`serve` loop."""
-    _send_header(OP_STOP, (), (), device)
+    _send_header(OP_STOP)

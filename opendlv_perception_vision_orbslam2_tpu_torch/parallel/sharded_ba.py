@@ -5,7 +5,7 @@ edges split across the ranks in contiguous blocks (the layout
 ``NamedSharding(P(axis))`` gives), poses and points are replicated, and every
 edge reduction of ``optim/gba.py::gba_core`` (the cost, the gradient and
 diagonal blocks, the W / W^T products inside CG) ends in one
-``all_reduce(SUM)`` on the caller's group: its ``reduce_fn`` hook.  Each rank
+``all_reduce_sum`` on the caller's group: its ``reduce_fn`` hook.  Each rank
 sums its own edges in the fixed order of its ``EdgeSums``, and the all-reduce
 gives every rank the same bits, so the carry stays replicated.
 

@@ -2,7 +2,7 @@
 
 Counterpart of the reference package's ``parallel/sharded_pose.py``: the
 reprojection residuals and Jacobians of the observations split across the
-ranks, each rank forms its 6x6 normal system, and one ``all_reduce(SUM)`` a
+ranks, each rank forms its 6x6 normal system, and one ``all_reduce_sum`` a
 Gauss-Newton step assembles the whole (H and b packed into 42 floats; the
 reference makes two psums).  The schedule is the sharded one, not
 ``optim/pose_opt.py``'s: ``n_rounds`` rounds of exactly ``n_iters`` steps

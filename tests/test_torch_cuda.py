@@ -1,5 +1,6 @@
 """The port on the card: CUDA kernels vs their plain PyTorch versions, bit for
-bit, and the SLAM stages on the card vs the same stages on the CPU.
+bit, the SLAM stages on the card vs the same stages on the CPU, and the CLI
+on several ranks (gloo on one card; NCCL one rank a card, with two or more).
 
 Marked ``cuda``: each test skips without a CUDA device.  This file imports no
 jax (the card's machine has none), so it runs there on its own:
@@ -643,3 +644,186 @@ def test_sharded_gba_chunk_two_ranks_on_card(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(r0["carry"], r1["carry"]))
     assert float((r0["carry"][0] - r0["single"][0]).abs().max()) < 1e-3
     assert abs(float(r0["carry"][3]) - float(r0["single"][3])) <= 1e-3 * float(r0["single"][3])
+
+
+# the 512x256 fixture's flags for the CLI (tests/test_torch_io.py's CLI_FLAGS)
+_CLI_FLAGS = ["--Camera.fx=320", "--Camera.fy=320", "--Camera.cx=256", "--Camera.cy=128",
+              "--Camera.bf=160", "--Camera.fps=10", "--width=512", "--height=256",
+              "--ORBextractor.nFeatures=600", "--ORBextractor.nLevels=4"]
+
+
+def _cli_on_ranks(tmp_path, monkeypatch, ranks, n=8):
+    """``__main__.main`` over an ``n``-frame 512x256 KITTI directory on the
+    card with ``ranks``: its exit code, its ``LocalRanks`` and the dumped
+    poses, after checking that no group and no child process is left."""
+    import multiprocessing
+
+    import chip_smoke
+    import torch.distributed as dist
+
+    from opendlv_perception_vision_orbslam2_tpu_torch import __main__ as cli
+    from opendlv_perception_vision_orbslam2_tpu_torch.parallel import launch
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic
+
+    lefts, rights, _, _ = synthetic.render_stereo_sequence(_slam_cfg(), n_frames=n,
+                                                           n_points=500, seed=5, step=0.25)
+    chip_smoke.write_kitti_dir(tmp_path, lefts, rights, 10.0)
+    made = []
+
+    class Kept(launch.LocalRanks):
+        def __init__(self, plan):
+            super().__init__(plan)
+            made.append(self)
+
+    monkeypatch.setattr(launch, "LocalRanks", Kept)
+    rc = cli.main([f"--kittiPath={tmp_path}"] + _CLI_FLAGS, ranks=ranks)
+    assert not dist.is_initialized() and multiprocessing.active_children() == []
+    poses = chip_smoke.read_kitti_poses(tmp_path / "poses.txt")
+    assert len(poses) == n and all(np.isfinite(T).all() for T in poses)
+    return rc, made[0]
+
+
+@pytest.mark.cuda
+def test_cli_on_two_ranks_on_card(tmp_path, monkeypatch):
+    """``main(..., ranks=2)``: two gloo ranks on ``cuda:0`` on a host with one
+    card (NCCL refuses two ranks on one card), NCCL on ``cuda:0`` and
+    ``cuda:1`` with more; exit 0, the worker served and exited 0, nothing
+    left behind."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.parallel import launch
+
+    rc, ranks = _cli_on_ranks(tmp_path, monkeypatch, 2)
+    want = launch.GLOO if torch.cuda.device_count() < 2 else launch.NCCL
+    assert rc == 0 and ranks.plan.backend == want and ranks.exit_codes == [0]
+    assert ranks.reports[1]["served"] > 0
+
+
+@pytest.mark.cuda
+def test_cli_on_every_card_over_nccl(tmp_path, monkeypatch):
+    """The user's default on a host with several cards: one rank a card
+    over NCCL, exit 0, every worker served and exited 0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices (NCCL takes one rank a card)")
+    from opendlv_perception_vision_orbslam2_tpu_torch.parallel import launch
+
+    rc, ranks = _cli_on_ranks(tmp_path, monkeypatch, None)
+    d = torch.cuda.device_count()
+    assert rc == 0 and ranks.plan.world == d and ranks.plan.backend == launch.NCCL
+    assert ranks.exit_codes == [0] * (d - 1)
+    assert all(ranks.reports[r]["served"] > 0 for r in range(1, d))
+
+
+def _need_cards(n: int):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} or more CUDA devices (NCCL takes one rank a card)")
+
+
+@pytest.mark.cuda
+def test_cli_nccl_worker_killed_makes_main_raise(tmp_path, monkeypatch):
+    """One rank a card: the last worker killed after frame 3 makes rank 0's
+    next op raise (the launcher's watch thread writes ``serve/failed``),
+    well within the group's timeout; the other workers are stopped and
+    nothing is left behind.  Prints the seconds from the kill to the raise
+    (run with -s)."""
+    _need_cards(2)
+    import multiprocessing
+    import time
+
+    import torch.distributed as dist
+
+    import chip_smoke
+    from opendlv_perception_vision_orbslam2_tpu_torch import __main__ as cli
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import selflocalization as sel
+    from opendlv_perception_vision_orbslam2_tpu_torch.parallel import launch
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic
+
+    monkeypatch.setattr(launch, "GROUP_TIMEOUT_S", 30.0)
+    lefts, rights, _, _ = synthetic.render_stereo_sequence(_slam_cfg(), n_frames=6,
+                                                           n_points=500, seed=5, step=0.25)
+    chip_smoke.write_kitti_dir(tmp_path, lefts, rights, 10.0)
+    killed, made = [], []
+
+    class Killing(sel.Selflocalization):
+        def track(self, *args, **kwargs):
+            if self.frame_count == 3:
+                p = multiprocessing.active_children()[-1]
+                p.kill()
+                p.join()
+                killed.append(time.monotonic())
+            return super().track(*args, **kwargs)
+
+    class Kept(launch.LocalRanks):
+        def __init__(self, plan):
+            super().__init__(plan)
+            made.append(self)
+
+    monkeypatch.setattr(sel, "Selflocalization", Killing)
+    monkeypatch.setattr(launch, "LocalRanks", Kept)
+    with pytest.raises(RuntimeError, match="ended during the run"):
+        cli.main([f"--kittiPath={tmp_path}"] + _CLI_FLAGS)
+    took = time.monotonic() - killed[0]
+    print(f"\nNCCL, {made[0].plan.world} ranks: main raised {took:.2f} s after a worker was "
+          f"killed (group timeout {launch.GROUP_TIMEOUT_S} s); worker exit codes "
+          f"{made[0].exit_codes}")
+    assert made[0].plan.backend == launch.NCCL and took < launch.GROUP_TIMEOUT_S
+    assert sorted(made[0].exit_codes)[0] == -9 and sorted(made[0].exit_codes)[1:] == [0] * (
+        len(made[0].exit_codes) - 1)
+    assert not dist.is_initialized() and multiprocessing.active_children() == []
+
+
+@pytest.mark.cuda
+def test_cli_nccl_idle_live_session(monkeypatch):
+    """One rank a card: a live session whose camera sends nothing for 2.5
+    group timeouts tracks every frame and every rank exits 0 (NCCL's
+    watchdog ends a collective that waits longer than the timeout; the
+    workers wait in the store).  Prints the run's seconds (run with -s)."""
+    _need_cards(2)
+    import multiprocessing
+    import time
+
+    import torch.distributed as dist
+
+    from opendlv_perception_vision_orbslam2_tpu_torch import __main__ as cli
+    from opendlv_perception_vision_orbslam2_tpu_torch.io import od4
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import selflocalization as sel
+    from opendlv_perception_vision_orbslam2_tpu_torch.parallel import launch
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic
+
+    timeout_s = 10.0
+    monkeypatch.setattr(launch, "GROUP_TIMEOUT_S", timeout_s)
+    monkeypatch.setattr(od4, "OD4Session", lambda *a, **k: od4.NullSession())   # no socket
+    lefts, rights, _, _ = synthetic.render_stereo_sequence(_slam_cfg(), n_frames=5,
+                                                           n_points=500, seed=5, step=0.25)
+    frames = [(np.hstack([a, b]), 0.1 * i) for i, (a, b) in enumerate(zip(lefts, rights))]
+    made, kept = [], []
+
+    class Kept(launch.LocalRanks):
+        def __init__(self, plan):
+            super().__init__(plan)
+            made.append(self)
+
+    class Keeping(sel.Selflocalization):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            kept.append(self)
+
+    def paused():
+        yield from frames[:2]
+        time.sleep(2.5 * timeout_s)
+        yield from frames[2:]
+
+    monkeypatch.setattr(launch, "LocalRanks", Kept)
+    monkeypatch.setattr(sel, "Selflocalization", Keeping)
+    live = ["--cid=111", "--name=cam0", "--width=1024", "--height=256", "--bpp=24"] + [
+        f for f in _CLI_FLAGS if not f.startswith(("--width", "--height"))]
+    t = time.monotonic()
+    assert cli.main(live, frames=paused()) == 0
+    ranks = made[0]
+    print(f"\nNCCL, {ranks.plan.world} ranks: a live session idle {2.5 * timeout_s:.0f} s "
+          f"(group timeout {timeout_s} s) ended with exit 0 in {time.monotonic() - t:.1f} s; "
+          f"worker exit codes {ranks.exit_codes}, ops served "
+          f"{[r['served'] for r in ranks.reports.values()]}")
+    assert ranks.plan.backend == launch.NCCL and ranks.exit_codes == [0] * (ranks.plan.world - 1)
+    assert len(kept[0].slam.trajectory) == len(frames)
+    assert all(r["served"] >= len(frames) - 1 for r in ranks.reports.values())
+    assert not dist.is_initialized() and multiprocessing.active_children() == []

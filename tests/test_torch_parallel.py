@@ -115,7 +115,7 @@ def _rank0_engine(inp):
            "igba_off": _run_igba(inp["map"], False, REPEAT_CHUNKS)}
     # track_frame_with_map with the engine's sharded solver, from recorded
     # inputs and the reference's RANSAC sets
-    solver = tserve.EnginePoseSolver("cpu", **CAM)
+    solver = tserve.EnginePoseSolver(**CAM)
     inner = tpnp.sample_sets
     tpnp.sample_sets = lambda valid, generator=None, n_hypotheses=None: inp["sets"]
     try:
@@ -171,7 +171,7 @@ def _main_scenario(rank, world, inp):
     # the engine on rank 0, the others serving
     if rank == 0:
         out.update(_rank0_engine(inp))
-        tserve.stop_workers("cpu")
+        tserve.stop_workers()
     else:
         records = []
         out["served"] = tserve.serve("cpu", on_result=lambda op, r: records.append((op, r)))
@@ -182,11 +182,11 @@ def _main_scenario(rank, world, inp):
 def _failing_scenario(rank, world, inp):
     """Rank 1 raises inside its first served op; rank 0 goes on calling."""
     if rank == 0:
-        solver = tserve.EnginePoseSolver("cpu", **CAM)
+        solver = tserve.EnginePoseSolver(**CAM)
         T0, obs = inp["pose"]["even"]
         for _ in range(3):
             solver(T0, obs)
-        tserve.stop_workers("cpu")
+        tserve.stop_workers()
         return {}
 
     def fail(op, result):
