@@ -11,10 +11,14 @@ All K vertex states take one ``[K, 7]`` tangent update (rho, phi, sigma).
 The per-edge 7x14 Jacobians come from forward-mode autodiff of the
 relative-similarity residual (:func:`forward_jacobian`: the 14 directions
 as one batched evaluation of dual tensors).  The
-normal system is built by ``index_add`` of four blocks per edge into a
-``[K*K, 7, 7]`` block table, viewed as the dense ``[7K, 7K]`` matrix, and
-solved by ``solve_ex``: a singular system gives a flagged or non-finite
-step that the guard zeroes, and nothing is read back.
+normal system sums four blocks per edge into a ``[K*K, 7, 7]`` block
+table, viewed as the dense ``[7K, 7K]`` matrix, and is solved by
+``solve_ex``: a singular system gives a flagged or non-finite step that the
+guard zeroes, and nothing is read back.  The sums run in an order fixed by
+the edges (:func:`block_order`): the order of the reference's
+``.at[].add`` on the CPU, bit for bit, and the same order on every run on
+the card, where a float ``index_add`` adds by atomics in arrival order
+(the same correction as ``optim/gba.py``'s ``EdgeSums``).
 """
 
 from __future__ import annotations
@@ -72,6 +76,22 @@ def forward_jacobian(fn, x):
     return torch.movedim(tangent, 0, -1)
 
 
+def block_order(targets, n: int):
+    """The fixed summation order of contributions to ``n`` blocks, the
+    contribution ``k`` going to block ``targets[k]``: the contributions
+    sorted by block (stable, so each block adds its own in ``targets``'
+    order) and each block's count.  No host read."""
+    targets = targets.long()
+    lengths = torch.zeros((n,), dtype=torch.int64, device=targets.device).index_add(
+        0, targets, torch.ones_like(targets))
+    return torch.argsort(targets, stable=True), lengths
+
+
+def block_sum(vals, order, lengths):
+    """``vals [N, ...]`` summed into the blocks of :func:`block_order`."""
+    return torch.segment_reduce(vals[order], "sum", lengths=lengths, unsafe=True)
+
+
 def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, fix_scale: bool = True):
     """Returns ``(T [K, 4, 4] SE3-recovered poses, scale [K])``.  ``fix_scale``
     pins every vertex's scale (stereo); ``False`` lets loop edges with a
@@ -93,6 +113,9 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, fix_scale: bo
     diag_fix = torch.where(free[:, None, None], 0.0, eyeD) + 1e-6 * eyeD
     zeros = torch.zeros((E, D), dtype=dt, device=dev)
     zeros2 = torch.zeros((E, 2 * D), dtype=dt, device=dev)
+    H_sums = block_order(torch.cat([e_i * K + e_i, e_j * K + e_j, e_i * K + e_j, e_j * K + e_i,
+                                    diag_blocks]), K * K)
+    b_sums = block_order(torch.cat([e_i, e_j]), K)
     for _ in range(n_iters):
         T_i, T_j = T_all[e_i], T_all[e_j]
         s_i, s_j = s_all[e_i], s_all[e_j]
@@ -109,15 +132,10 @@ def optimize_pose_graph(prob: PoseGraphProblem, n_iters: int = 20, fix_scale: bo
         rw = r * w[:, None]
 
         Jt_i, Jt_j = J_i.transpose(1, 2), J_j.transpose(1, 2)
-        H = torch.zeros((K * K, D, D), dtype=dt, device=dev)
-        H = H.index_add(0, e_i * K + e_i, Jt_i @ J_i)
-        H = H.index_add(0, e_j * K + e_j, Jt_j @ J_j)
-        H = H.index_add(0, e_i * K + e_j, Jt_i @ J_j)
-        H = H.index_add(0, e_j * K + e_i, Jt_j @ J_i)
-        b = torch.zeros((K, D), dtype=dt, device=dev)
-        b = b.index_add(0, e_i, -(Jt_i @ rw[:, :, None])[:, :, 0])
-        b = b.index_add(0, e_j, -(Jt_j @ rw[:, :, None])[:, :, 0])
-        H = H.index_add(0, diag_blocks, diag_fix)
+        H = block_sum(torch.cat([Jt_i @ J_i, Jt_j @ J_j, Jt_i @ J_j, Jt_j @ J_i, diag_fix]),
+                      *H_sums)
+        b = block_sum(-torch.cat([Jt_i @ rw[:, :, None], Jt_j @ rw[:, :, None]])[:, :, 0],
+                      *b_sums)
         # Levenberg-Marquardt damping RELATIVE to the diagonal (g2o runs LM
         # here too, src/orboptimizer.cpp:799-840): long chains of degree-2
         # vertices leave the float32 system ill-conditioned without it

@@ -145,8 +145,10 @@ def _worker(rank: int, plan: RankPlan, port: int, timeout_s: float, threads: int
                 for mod, names in ((fast_kernel, ("fast_nms", "fast_nms_pyramid")),
                                    (gather_kernel, ("gather_patches", "gather_patches_multi")))
                 for name in names}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     store.set(f"{_REPORT}{rank}", json.dumps(
-        {"served": served, "launches": launches, "collectives": dict(STATS)}))
+        {"served": served, "ops": serve.OP_STATS, "launches": launches,
+         "collectives": dict(STATS), "peak_bytes": peak}))
     dist.destroy_process_group()
 
 
@@ -159,8 +161,10 @@ class LocalRanks:
     device`` starts the workers and forms the default group (nothing for
     one rank) and yields rank 0's device; leaving the block tears it all
     down.  After it, ``exit_codes`` holds each worker's exit code (a killed
-    worker's is negative) and ``reports`` what each said it did: ops served,
-    kernel launches, collective calls.  Leaving without an exception raises
+    worker's is negative) and ``reports`` what each said it did: ops served
+    (``served``, and by name with their ms, ``ops``: ``serve.OP_STATS``),
+    kernel launches, collective calls, peak device memory (``peak_bytes``,
+    None on the CPU).  Leaving without an exception raises
     if a worker did not exit 0."""
 
     def __init__(self, plan: RankPlan):

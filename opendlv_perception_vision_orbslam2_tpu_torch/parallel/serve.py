@@ -38,6 +38,7 @@ stays blocked.
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 import torch.distributed as dist
@@ -58,6 +59,11 @@ _SEQ_KEY = "serve/seq"          # rank 0's op count
 _OP_KEY = "serve/op/{rank}/{seq}"
 #: set (to a message) when a worker ended during the run; rank 0's next op raises it
 FAILED_KEY = "serve/failed"
+#: this rank's ops served by the last :func:`serve`, by name: their count and
+#: the time from receiving each header to its result (the device's time by
+#: CUDA events on a card, the host's on the CPU; collectives' waits included),
+#: in ms, summed and at most
+OP_STATS: dict = {}
 
 
 def _store():
@@ -216,7 +222,7 @@ class EngineGBA(ShardedGBA):
 
 def serve(device, on_result=None) -> int:
     """Serve rank 0's sharded solves until it sends the stop op; returns the
-    number of ops served.  ``on_result(op_name, result)``, when given, sees
+    number of ops served (by name, with their ms, in ``OP_STATS``).  ``on_result(op_name, result)``, when given, sees
     each op's result on this rank: the pose solve's ``(T, inliers,
     n_inliers)``, the GBA's carry after each step.  A GBA init drops the
     GBA served before it (the engine steps one at a time)."""
@@ -228,10 +234,14 @@ def serve(device, on_result=None) -> int:
     store = _store()
     gba_handle, gba = None, None
     served = 0
+    spans = []                  # (op name, start, end) of each op served
+    OP_STATS.clear()
     while True:
         op, ints, cam = _recv_header(store, rank, served)
         if op == OP_STOP:
+            _op_stats(spans)
             return served
+        start = _mark(device)
         if op == OP_POSE:
             k = ints[0]
             buf = broadcast(torch.empty((16 + _POSE_COLS * k,), dtype=torch.float32,
@@ -254,9 +264,35 @@ def serve(device, on_result=None) -> int:
             result = gba.step()
         else:
             raise RuntimeError(f"unknown op {op} from rank 0")
+        spans.append((_OP_NAMES[op], start, _mark(device)))
         served += 1
         if on_result is not None:
             on_result(_OP_NAMES[op], result)
+
+
+def _mark(device):
+    """A point in this rank's time: a recorded CUDA event on a card, the
+    host's clock on the CPU."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _op_stats(spans) -> None:
+    """Fill ``OP_STATS`` from the spans of the ops served (waits for the
+    last of them on a card)."""
+    for name, start, end in spans:
+        if isinstance(start, float):
+            ms = 1e3 * (end - start)
+        else:
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        s = OP_STATS.setdefault(name, {"n": 0, "ms": 0.0, "max_ms": 0.0})
+        s["n"] += 1
+        s["ms"] += ms
+        s["max_ms"] = max(s["max_ms"], ms)
 
 
 def warm_up(device) -> None:

@@ -379,6 +379,142 @@ def _ring_map():
     return cfg, out
 
 
+def ring_closure():
+    """The ring's map at the keyframe whose detection nominated the loop
+    (the port's synchronous closer on the CPU), its database and node
+    table, the nomination and the ring's truth, on the CPU."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import loop_closing as lc
+
+    cfg, steps = _ring_map()
+    closer = lc.LoopCloser(cfg)
+    closer.last_loop_kf_id = -100
+    closer.defer_gba = True
+    dets, inner = [], closer.harvest_detect
+    closer.harvest_detect = lambda pending: dets.append(inner(pending)) or dets[-1]
+    for m, db, nodes, slot in steps:
+        if closer.on_keyframe(m, db, nodes, slot)[1]:
+            break
+    else:
+        raise AssertionError("no loop closed on the ring")
+    gt = [_ring_pose(i) for i in range(int(m.kf_valid.sum()))]
+    return dict(cfg=cfg, map=m, db=db, nodes=nodes, det=tuple(int(x) for x in dets[-1]),
+                gt=gt)
+
+
+# the engine's GBA lifecycle on the ring's closure (tests/test_torch_multi_loop.py)
+CHUNKS_BEFORE_PAUSE = 2        # step 2
+CHUNKS_BEFORE_GROWTH = 1       # after step 4
+N_OUTER = 10                   # IncrementalGBA's chunks a solve
+
+
+def _host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.array(x)
+
+
+def _kf_poses(m):
+    return _host(m.kf_T_cw)[_host(m.kf_valid)]
+
+
+def lifecycle(slam, c, split_key=None, pause_check=None):
+    """The post-loop GBA's lifecycle that only the engine drives, on
+    ``slam`` (either package's ``StereoSlam``) holding ``c``'s closure map:
+
+    1. a valid verdict (``_dispatch_verify``, ``_try_harvest_loop``) starts
+       the GBA;
+    2. one chunk a frame (``_service_gba``), ``CHUNKS_BEFORE_PAUSE`` times;
+    3. a second verification in flight pauses it (``pause_check()``, when
+       given, calls ``_service_gba`` then and says whether it left the GBA
+       where it stood);
+    4. the second verdict replaces it; ``CHUNKS_BEFORE_GROWTH`` chunks;
+    5. a capacity growth drops it;
+    6. a third verdict starts one of the grown map's shapes;
+    7. ``finish()`` drains it to its merge.
+
+    Returns each verdict, the keyframe poses and capacity after it, the
+    carry after each chunk and the final map, on the host.  ``split_key``
+    is called before each verification (a test's set chain)."""
+    rec = dict(verdicts=[], corrected=[], K=[], carries=[], gbas=[])
+
+    def verify():
+        if split_key is not None:
+            split_key()
+        slam._dispatch_verify(c["det"])
+
+    def verdict():
+        loops = slam.loops_closed
+        slam._try_harvest_loop(force=True)
+        rec["verdicts"].append(slam.loops_closed - loops)
+        rec["corrected"].append(_kf_poses(slam.map))
+        rec["K"].append(int(slam.map.kf_capacity))
+        rec["gbas"].append(slam.pending_gba)
+
+    def chunk():
+        gba = slam.pending_gba
+        slam._service_gba()
+        rec["carries"].append(tuple(_host(x) for x in gba.carry))
+
+    verify()                                          # 1
+    verdict()
+    for _ in range(CHUNKS_BEFORE_PAUSE):              # 2
+        chunk()
+    verify()                                          # 3
+    if pause_check is not None:
+        rec["paused"] = pause_check()
+    verdict()                                         # 4
+    for _ in range(CHUNKS_BEFORE_GROWTH):
+        chunk()
+    slam._occ = (slam.map.kf_capacity - 4, 0)         # 5
+    slam._maybe_resize()
+    rec["dropped"] = slam.pending_gba is None
+    rec["grown"] = int(slam.map.kf_capacity)
+    verify()                                          # 6
+    verdict()
+    rec["before_merge"] = _kf_poses(slam.map)
+    last = slam.pending_gba
+    slam.finish()                                     # 7
+    rec["last_carry"] = tuple(_host(x) for x in last.carry)
+    rec["iters_left"] = last.iters_left
+    rec["final"] = _kf_poses(slam.map)
+    rec["final_pts"] = _host(slam.map.pt_pos)[_host(slam.map.pt_valid)]
+    rec["pending_after"] = slam.pending_gba
+    return rec
+
+
+def port_engine(c, device="cpu"):
+    """The port's ``StereoSlam`` on ``device`` holding ``c``'s closure map."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import loop_closing as lc
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as slam_mod
+
+    slam = slam_mod.StereoSlam(c["cfg"], enable_relocalization=False, device=device)
+    slam.map, slam.db = _to(c["map"], device), _to(c["db"], device)
+    slam.kf_nodes = c["nodes"].to(device)
+    slam.loop_closer = lc.LoopCloser(c["cfg"], device)
+    return slam
+
+
+def pause_check(slam):
+    """Step 3's check: ``_service_gba`` with a verification in flight leaves
+    the GBA where it stood and makes no collective."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.parallel import collectives
+
+    def check():
+        gba, stats = slam.pending_gba, dict(collectives.STATS)
+        iters = gba.iters_left
+        slam._service_gba()
+        return (slam.pending_gba is gba and gba.iters_left == iters
+                and collectives.STATS == stats)
+
+    return check
+
+
+def _bits(x):
+    if isinstance(x, np.ndarray):
+        return (x.shape, x.dtype.str, x.tobytes())
+    if isinstance(x, (list, tuple)):
+        return [_bits(y) for y in x]
+    return x
+
+
 @pytest.mark.cuda
 def test_loop_stages_on_card_equal_cpu(monkeypatch):
     """``chip_smoke.py`` phase 16's gates on the ring's closure: from the
@@ -390,18 +526,9 @@ def test_loop_stages_on_card_equal_cpu(monkeypatch):
     import chip_smoke
     from opendlv_perception_vision_orbslam2_tpu_torch.models import loop_closing as lc
 
-    cfg, steps = _ring_map()
-    closer = lc.LoopCloser(cfg)            # the synchronous closer on the CPU
-    closer.last_loop_kf_id = -100
-    closer.defer_gba = True
-    dets, inner = [], closer.harvest_detect
-    closer.harvest_detect = lambda pending: dets.append(inner(pending)) or dets[-1]
-    for m, db, nodes, slot in steps:
-        if closer.on_keyframe(m, db, nodes, slot)[1]:
-            break
-    else:
-        raise AssertionError("no loop closed on the ring")
-    cur, cur_id, cand, cand_id = dets[-1]
+    c = ring_closure()                     # the synchronous closer on the CPU
+    cfg, m, nodes = c["cfg"], c["map"], c["nodes"]
+    cur, cur_id, cand, cand_id = c["det"]
     draw, pair_oks, sets = lc.sample_sets, [], []
 
     def fixed_sets(pair_ok, generator, *a):
@@ -518,6 +645,32 @@ def test_one_eye_kernels_equal_plain_on_card():
     for job in (orb_job, mono_job):
         assert torch.equal(gather_kernel.gather_patches(*job),
                            gather_kernel.gather_patches_plain(*job))
+
+
+@pytest.mark.cuda
+def test_pose_graph_twice_bit_equal_on_card():
+    """The pose graph's normal system sums in a fixed order
+    (``block_order``), so the same problem solved twice on the card gives
+    the same bits: 128 vertices, 1500 edges, many into each vertex (a float
+    ``index_add`` there adds by atomics in arrival order)."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops import lie
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim import pose_graph as pg
+
+    g = torch.Generator().manual_seed(0)
+    K, E = 128, 1500
+    T = lie.exp_se3(torch.randn((K, 6), generator=g) * 0.3)
+    e_i, e_j = torch.randint(0, K, (E,), generator=g), torch.randint(0, K, (E,), generator=g)
+    noise = lie.exp_se3(torch.randn((E, 6), generator=g) * 0.01)
+    prob = pg.PoseGraphProblem(
+        T=T, v_valid=torch.ones(K, dtype=torch.bool), v_fixed=torch.arange(K) == 0,
+        e_i=e_i.to(torch.int32), e_j=e_j.to(torch.int32),
+        e_T_ij=noise @ pg.relative_pose(T[e_i], T[e_j]), e_weight=torch.ones(E),
+        e_valid=e_i != e_j)
+    cprob = pg.PoseGraphProblem(*(None if x is None else x.cuda() for x in prob))
+    a, b = pg.optimize_pose_graph(cprob, n_iters=5), pg.optimize_pose_graph(cprob, n_iters=5)
+    assert torch.isfinite(a[0]).all()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.cuda
@@ -711,6 +864,51 @@ def test_cli_on_every_card_over_nccl(tmp_path, monkeypatch):
     assert rc == 0 and ranks.plan.world == d and ranks.plan.backend == launch.NCCL
     assert ranks.exit_codes == [0] * (d - 1)
     assert all(ranks.reports[r]["served"] > 0 for r in range(1, d))
+
+
+LIFECYCLE_FIELDS = ("verdicts", "K", "corrected", "carries", "before_merge", "last_carry",
+                    "final", "final_pts")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_engine_started_sharded_gba_on_two_ranks_equals_witness(monkeypatch, backend):
+    """The post-loop GBA started by a verdict inside ``StereoSlam`` on rank
+    0 of two ranks on the card, its worker spawned by the CLI's launcher:
+    gloo with both on ``cuda:0``, NCCL on ``cuda:0`` and ``cuda:1`` (two or
+    more cards).  Over ``lifecycle`` (start, chunks, the pause, the
+    replacing verdict, the growth drop, ``finish()``), each correction, every
+    carry and the final map equal the split witness's on ``cuda:0`` bit for
+    bit, and the worker served every init and chunk and exited 0."""
+    _require_cuda()
+    if backend == "nccl":
+        _need_cards(2)
+    import chip_smoke
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import loop_closing as lc
+    from opendlv_perception_vision_orbslam2_tpu_torch.parallel import launch
+
+    c = ring_closure()
+    draw = lc.sample_sets
+    monkeypatch.setattr(lc, "sample_sets", lambda pair_ok, generator, *a: draw(
+        pair_ok.cpu(), torch.Generator().manual_seed(7), *a).to(pair_ok.device))
+    cuda0 = torch.device("cuda", 0)
+    plan = (launch.RankPlan(2, launch.GLOO, (cuda0, cuda0)) if backend == "gloo"
+            else launch.plan_ranks("cuda", 2, torch.cuda.device_count()))
+    ranks = launch.LocalRanks(plan)
+    with ranks as dev:
+        slam = port_engine(c, dev)
+        out = lifecycle(slam, c, pause_check=pause_check(slam))
+    with chip_smoke.SplitWitness(c["cfg"].camera, 2):
+        slam = port_engine(c, cuda0)
+        witness = lifecycle(slam, c, pause_check=pause_check(slam))
+    assert out["verdicts"] == [1, 1, 1] and out["paused"] and out["dropped"]
+    assert all(g._sharded is not None for g in out["gbas"])
+    for field in LIFECYCLE_FIELDS:
+        assert _bits(out[field]) == _bits(witness[field]), field
+    n_chunks = CHUNKS_BEFORE_PAUSE + CHUNKS_BEFORE_GROWTH + N_OUTER
+    ops = ranks.reports[1]["ops"]
+    assert ranks.exit_codes == [0]
+    assert ops["gba_init"]["n"] == 3 and ops["gba_step"]["n"] == n_chunks
 
 
 def _need_cards(n: int):

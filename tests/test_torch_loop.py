@@ -268,6 +268,29 @@ def test_optimize_pose_graph_matches_reference(make):
            jpg.relative_pose(prob.T[3], prob.T[4]), 1e-6)
 
 
+def test_pose_graph_block_sums_match_index_add():
+    """The normal system's fixed-order sums (``block_order`` /
+    ``block_sum``) against the ``index_add`` calls they replace, bit for
+    bit on the CPU: each edge's four blocks and the diagonal floor, vertices
+    shared by many edges."""
+    g = torch.Generator().manual_seed(0)
+    K, E, D = 9, 60, tpg.D
+    e_i, e_j = torch.randint(0, K, (E,), generator=g), torch.randint(0, K, (E,), generator=g)
+    blocks = [torch.randn((E, D, D), generator=g) for _ in range(4)]
+    diag = torch.randn((K, D, D), generator=g)
+    diag_at = torch.arange(K) * (K + 1)
+    targets = [e_i * K + e_i, e_j * K + e_j, e_i * K + e_j, e_j * K + e_i, diag_at]
+    ref = torch.zeros((K * K, D, D))
+    for t, v in zip(targets, blocks + [diag]):
+        ref = ref.index_add(0, t, v)
+    out = tpg.block_sum(torch.cat(blocks + [diag]), *tpg.block_order(torch.cat(targets), K * K))
+    assert torch.equal(out, ref)
+    rows = [torch.randn((E, D), generator=g) for _ in range(2)]
+    ref = torch.zeros((K, D)).index_add(0, e_i, rows[0]).index_add(0, e_j, rows[1])
+    out = tpg.block_sum(torch.cat(rows), *tpg.block_order(torch.cat([e_i, e_j]), K))
+    assert torch.equal(out, ref)
+
+
 def test_singular_pose_graph_gives_a_zero_step():
     """A system with a free vertex and no edge is singular (up to the 1e-6
     floor); a NaN measurement makes the step non-finite: both are zeroed,
