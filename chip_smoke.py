@@ -193,15 +193,44 @@ and the final line is not printed:
     ``gba_init`` and ``gba_step`` counts equal to rank 0's starts and chunks,
     the last GBA merged, growth past 64 keyframe slots, lost < 5 %, ATE
     (align=True) < ``LOOP_ATE_BOUND_M``, 1 + 2 launches a frame on rank 0
-    and none on the workers, no host sync at the service sites; then the
-    lone CLI whose pose solve and GBA sum D blocks in rank order
-    (``SplitWitness``): the same final keyframes and poses, the same
-    verifications (frame, keyframe pair, inliers, verdict), poses.txt bit
-    for bit.  Prints ms/frame beside phase 15's, every verification, each
+    and none on the workers, no host sync at the service sites; then each
+    GBA the engine started, replayed from the map it started from by the
+    split witness's GBA (``split_gba``: D edge blocks summed in rank order
+    in one process): the carry after every chunk and the merged keyframe
+    poses bit for bit (phase 21 holds the CLI's sharded pose solve to its
+    lone witness).  Prints ms/frame beside phase 15's, every verification, each
     GBA (its frame, shapes, live edges a rank, the problem broadcast's
     bytes and ms, its chunks' frames and merge), each rank's GBA chunk ms,
     the collectives a frame and a chunk (calls, device ms, host ms), peak
     device memory a rank and the phase's seconds.
+
+23. the vocabulary file: a DBoW2 text vocabulary of ORBvoc's shape (k = 10,
+    L = 6, 10^6 words) written once into the git-ignored ``_build/``
+    (``orbvoc_file``, keyed by the generator's parameters), then
+    (A) ``__main__.main(argv + ["--vocFilePath=<file>"], ranks=1)`` over
+    phase 22's PNG pairs of the loop circuit.  Gates: exit 0, complete
+    dumps, lost < 5 %, growth past 64 keyframe slots, >= 1 loop, ATE
+    (align=True) < ``LOOP_ATE_BOUND_M``, 1 FAST + 2 gather launches a frame,
+    no host sync inside ``track`` at the service sites or in the
+    place-recognition code
+    (``PLACE_FILES``), the file loaded once, the vocabulary never replaced
+    (no ``_adopt_vocab``, no retrain) and the database the file's W wide;
+    after ``finish()`` every live keyframe's stored row and node table equal
+    the ones recomputed from the map with the file, and on that database
+    ``loop_candidates``, ``loop_min_score`` and ``common_word_counts`` at
+    the closing and the last keyframe give the card's and the CPU's
+    counts identical, scores within 1e-6 and the same candidates.  Prints the file's
+    bytes, nodes and words, the generator's and the loader's seconds,
+    fps.txt's median and worst beside phases 15 and 22, the host ms of
+    ``_register_keyframe``, the device ms of ``loop_candidates`` at the last
+    64-slot keyframe and after growth, the database's bytes, peak device
+    memory, the host syncs by site and each verification with the channel
+    that nominated it.  (B) ``StereoSlam(cfg, vocab=<the file>)``,
+    relocalization on, over phase 12's 24 frames, then phase 13's kidnap:
+    not lost at frame 8, pose error < ``KIDNAP_BOUND_M``, the vocabulary
+    never replaced; then ``reloc_card_vs_cpu`` on frame 6 with that
+    database.  A missing or unreadable file fails the phase: it never
+    trains a vocabulary and never falls back to a smaller one.
 
 Phases 3-4 also check the one-eye kernel cases of phases 17-18: one
 ``fast_nms_pyramid`` launch over one eye's 8 levels, and the one-eye ORB
@@ -209,7 +238,8 @@ atlas gather at N = 2000 and at the monocular initialization's 2048.
 
 Then one JSON line of kernel results (each kernel's per-frame numbers, its
 sites, and its launches on phase 15's path (``launches``) and on phases 5,
-9, 12, 17, 18, 19's CLI drive, 20's, 21's and 22's rank 0), the nvidia-smi
+9, 12, 17, 18, 19's CLI drive, 20's, 21's and 22's rank 0 and 23's CLI
+drive), the nvidia-smi
 line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports no jax.
 """
@@ -2989,7 +3019,9 @@ class _LoopRecorder:
     keyframe pair, its inliers and verdict), and each GBA the engine starts:
     whether it is sharded, its problem's broadcast (bytes, device ms), its
     live edges a rank, and each chunk (the frame, device ms by CUDA events,
-    the collectives' calls, host ms and device ms) and the merge's frame.
+    the collectives' calls, host ms and device ms) and the merge's frame;
+    for ``replay_gbas``, the map it started from, its config, its carry
+    after each chunk, and the map it merged into with the merged poses.
     ``coll`` is the ``_CollectiveTimes`` around the run."""
 
     def __init__(self, world: int, coll):
@@ -3036,7 +3068,8 @@ class _LoopRecorder:
                                 init_ms=a.elapsed_time(b), init=spent(before),
                                 problem_bytes=rec.bytes, live=_live_edges(self.prob, rec.world),
                                 n_edges=int(self.prob.e_kf.shape[0]),
-                                K=int(m.kf_capacity), chunks=[], merged=None)
+                                K=int(m.kf_capacity), chunks=[], merged=None,
+                                map=m, config=config, carries=[], merge_in=None, merge_T=None)
                 rec.gbas.append(self.rec)
 
             def step(self):
@@ -3048,11 +3081,14 @@ class _LoopRecorder:
                 b.synchronize()
                 self.rec["chunks"].append(dict(frame=rec.frame, ms=a.elapsed_time(b),
                                                **spent(before)))
+                self.rec["carries"].append(self.carry)
                 return done
 
             def merge(self, m):
                 self.rec["merged"] = rec.frame
-                return super().merge(m)
+                out = super().merge(m)
+                self.rec["merge_in"], self.rec["merge_T"] = m, out.kf_T_cw
+                return out
 
         def noted_clt(*args, **kwargs):
             lm = inner_clt(*args, **kwargs)
@@ -3083,6 +3119,25 @@ class _LoopRecorder:
          slam_mod.StereoSlam._dispatch_verify, serve.broadcast) = self.inner
         return False
 
+    def replay_gbas(self):
+        """Each recorded GBA replayed from its map by the split witness's GBA
+        (``split_gba``: the same ``world`` edge blocks summed in rank order in
+        one process, no group) for as many chunks as the engine ran, then
+        merged into the same map.  Returns ``(the chunks' carries bit-equal,
+        the merged keyframe poses bit-equal)`` over every GBA."""
+        import torch
+
+        SplitGBA = split_gba(self.world)
+        carries_equal = merged_equal = True
+        for g in self.gbas:
+            w = SplitGBA(g["map"], g["config"])
+            for carry in g["carries"]:
+                w.step()
+                carries_equal &= all(torch.equal(a, b) for a, b in zip(w.carry, carry))
+            if g["merge_in"] is not None:
+                merged_equal &= torch.equal(w.merge(g["merge_in"]).kf_T_cw, g["merge_T"])
+        return carries_equal, merged_equal
+
     def closures(self, slam_loops: int):
         """Each verification as ``(frame, keyframe pair, n_inliers, n_total,
         verdict)``: the verdict of each is read from its match's ``ok``."""
@@ -3090,13 +3145,16 @@ class _LoopRecorder:
                  bool(v["lm"].ok)) for v in self.verifies]
 
 
-def loop_multi_phase(cfg, dev, circuit, loop_ms):
+def loop_multi_phase(cfg, dev, circuit, loop_ms, base: Path):
     """Phase 22: the CLI on D = max(2, cards) ranks in process (rank 0 here,
     D - 1 spawned by ``parallel/launch.py``) over phase 15's circuit
-    (``circuit``: its lefts, rights and ground truth) as PNG pairs, then the
-    lone CLI whose pose solve and GBA sum D blocks as the ranks do
-    (``SplitWitness``).  ``loop_ms``: phase 15's median ms/frame in this
-    call (None: not run).  Returns rank 0's launch counts."""
+    (``circuit``: its lefts, rights and ground truth) as PNG pairs, written
+    into the directory ``base`` (kept for phase 23) and copied for the run,
+    then each GBA the engine started replayed by the split witness's GBA,
+    which sums D blocks as the ranks do (``_LoopRecorder.replay_gbas``).
+    ``loop_ms``: phase 15's median ms/frame in this call (None: not run).
+    Returns rank 0's launch counts and its fps.txt ms/frame (median, worst)
+    over frames ``LOOP_WARM``-259."""
     import numpy as np
     import torch
 
@@ -3146,16 +3204,13 @@ def loop_multi_phase(cfg, dev, circuit, loop_ms):
             super().__init__(plan)
             ranks_made.append(self)
 
-    def run(directory, ranks, witness: bool):
+    def run(directory, ranks):
         del made[:]
-        argv = [f"--kittiPath={directory}"] + SERVICE_FLAGS
-        if not witness:
-            argv.insert(1, f"--cid={LOOP_MULTI_CID}")
+        argv = [f"--kittiPath={directory}", f"--cid={LOOP_MULTI_CID}"] + SERVICE_FLAGS
         sel_mod.Selflocalization, launch.LocalRanks = Recording, Kept
         od4_mod.OD4Session = _Session
         try:
-            with SplitWitness(cfg.camera, world) if witness else contextlib.nullcontext(), \
-                    _CollectiveTimes() as coll, _LoopRecorder(world, coll) as rec:
+            with _CollectiveTimes() as coll, _LoopRecorder(world, coll) as rec:
                 watch["rec"] = rec
                 t1 = time.perf_counter()
                 rc = cli.main(argv, ranks=ranks)
@@ -3169,11 +3224,9 @@ def loop_multi_phase(cfg, dev, circuit, loop_ms):
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_multi_") as tmp:
         t1 = time.perf_counter()
-        base = Path(tmp) / "kitti"
         write_kitti_dir(base, lefts, rights, LOOP_FPS)
-        dirs = {k: Path(tmp) / k for k in ("ranks", "witness")}
-        for d in dirs.values():
-            shutil.copytree(base, d)
+        dirs = {"ranks": Path(tmp) / "ranks"}
+        shutil.copytree(base, dirs["ranks"])
         write_s = time.perf_counter() - t1
 
         # -- 22a. main on D ranks, in process -----------------------------------
@@ -3182,7 +3235,7 @@ def loop_multi_phase(cfg, dev, circuit, loop_ms):
         torch.cuda.reset_peak_memory_stats()
         syncs = watch["syncs"] = _SyncCounter()
         try:
-            rc, wall_s, slam, rec, coll_ms = run(dirs["ranks"], world, witness=False)
+            rc, wall_s, slam, rec, coll_ms = run(dirs["ranks"], world)
         finally:
             watch["syncs"] = None
         launches = read_launches()
@@ -3293,35 +3346,370 @@ def loop_multi_phase(cfg, dev, circuit, loop_ms):
         if service_sites:
             raise AssertionError(f"loop multi: host syncs at the service sites {service_sites}")
 
-        # -- 22b. the lone CLI whose pose solve and GBA sum D blocks ---------------
-        rc_w, wall_w, wslam, wrec, _ = run(dirs["witness"], 1, witness=True)
-        w_closures = wrec.closures(wslam.loops_closed)
-        same_poses = (dirs["witness"] / "poses.txt").read_bytes() == \
-            (dirs["ranks"] / "poses.txt").read_bytes()
-        w_est = _dumps_complete(dirs["witness"], n)
-        gap = float(np.abs(np.stack(w_est) - np.stack(est)).max()) if w_est is not None \
-            else float("nan")
-        same_map = (wslam.n_keyframes == slam.n_keyframes
-                    and torch.equal(wslam.map.kf_valid, slam.map.kf_valid)
-                    and torch.equal(wslam.map.kf_id, slam.map.kf_id)
-                    and torch.equal(wslam.map.kf_T_cw, slam.map.kf_T_cw))
-        w_ms = np.array([1e3 / float(ln.split()[0]) for ln in
-                         (dirs["witness"] / "fps.txt").read_text().split("\n") if ln.strip()])
-        print(f"loop_multi_witness: the lone CLI (no group) whose pose solve and GBA sum "
-              f"{world} blocks in rank order as the ranks do (SplitWitness) | exit {rc_w} in "
-              f"{wall_w:.1f} s, ms/frame median {np.median(w_ms[LOOP_WARM:]):.2f} | keyframes "
-              f"{wslam.n_keyframes} vs {slam.n_keyframes} on {world} ranks, final keyframe "
-              f"slots, ids and poses {'bit-equal' if same_map else 'DIFFER'} | verifications "
-              f"{'equal' if w_closures == closures else f'DIFFER: {w_closures}'} | loops "
-              f"{wslam.loops_closed} | GBA chunks {sum(len(g['chunks']) for g in wrec.gbas)} | "
-              f"poses.txt {'bit-equal' if same_poses else 'DIFFERS'} (max entry gap "
-              f"{gap:.3g})", flush=True)
-        if rc_w != 0 or w_est is None:
-            raise AssertionError(f"loop multi witness: exit {rc_w}, dumps incomplete")
-        if not (same_map and w_closures == closures and same_poses):
-            raise AssertionError(f"loop multi: {world} ranks and the split witness part")
+        # -- 22b. each GBA replayed by the split witness's GBA ----------------------
+        t1 = time.perf_counter()
+        same_carries, same_merge = rec.replay_gbas()
+        replay_s = time.perf_counter() - t1
+        print(f"loop_multi_witness: each GBA the engine started, replayed from its map by "
+              f"the split witness's GBA ({world} edge blocks summed in rank order in one "
+              f"process) for its {len(chunks)} chunks: carries "
+              f"{'bit-equal' if same_carries else 'DIFFER'}, merged keyframe poses "
+              f"{'bit-equal' if same_merge else 'DIFFER'} ({replay_s:.1f} s)", flush=True)
+        if not (same_carries and same_merge):
+            raise AssertionError(f"loop multi: {world} ranks' GBA and the split witness's part")
+        del rec
     print(f"loop_multi_phase_seconds: phase 22 {time.perf_counter() - t0:.1f} (the ranks "
-          f"{wall_s:.1f}, the witness {wall_w:.1f})", flush=True)
+          f"{wall_s:.1f}, the replay {replay_s:.1f})", flush=True)
+    return launches, (float(np.median(timed)), float(timed.max()))
+
+
+# Phase 23: the vocabulary file.  A DBoW2 text vocabulary of ORBvoc's shape
+# (k = 10, L = 6: 1,111,110 nodes, 10^6 words), written once into the
+# git-ignored _build/ by utils/synthetic.py::write_orbvoc_text, its upper 3
+# levels trained on the descriptors of ORBVOC_DRIVE, a drive no other phase
+# runs (ORBvoc was trained on images other than those it sees); the CLI
+# loads it with --vocFilePath, and the engine keeps it for the whole run.
+ORBVOC_DRIVE = dict(n_frames=12, n_points=900, seed=3, step=0.8)
+ORBVOC_SEED = 0
+# where a host sync would grow with the vocabulary's width W
+PLACE_FILES = ("kfdb.py", "vocabulary.py")
+
+
+def orbvoc_file(cfg, dev):
+    """``(path, stats, seconds)`` of the ORBvoc-shaped file, keyed by the
+    generator's parameters and source: written when missing from the descriptors of
+    ``ORBVOC_DRIVE``'s left frames (the port's front end on ``dev``),
+    reused otherwise (``seconds`` None)."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from opendlv_perception_vision_orbslam2_tpu_torch.models.frontend import process_stereo
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops import cuda_build
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic
+
+    params = [ORBVOC_DRIVE, ORBVOC_SEED, synthetic.ORBVOC_BRANCHING, synthetic.ORBVOC_LEVELS,
+              synthetic.ORBVOC_TRAINED_LEVELS, cfg.orb.n_features, cfg.orb.n_levels,
+              hashlib.sha1(Path(synthetic.__file__).read_bytes()).hexdigest()]   # the writer's
+    key = hashlib.sha1(json.dumps(params).encode()).hexdigest()[:12]
+    path = cuda_build.BUILD_DIR / (f"orbvoc_k{synthetic.ORBVOC_BRANCHING}_"
+                                   f"L{synthetic.ORBVOC_LEVELS}_{key}.txt")
+    k, L = synthetic.ORBVOC_BRANCHING, synthetic.ORBVOC_LEVELS
+    stats = {"nodes": sum(k ** d for d in range(1, L + 1)), "words": k ** L}
+    if path.exists():
+        return path, dict(stats, bytes=path.stat().st_size), None
+    t = time.perf_counter()
+    lefts, rights, _, _ = synthetic.render_stereo_sequence(cfg, **ORBVOC_DRIVE)
+    descs = []
+    for i in range(len(lefts)):
+        f = process_stereo(torch.from_numpy(lefts[i]).to(dev),
+                           torch.from_numpy(rights[i]).to(dev), cfg, i / cfg.camera.fps).features
+        descs.append(f.desc[f.valid].cpu().numpy())
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    stats = synthetic.write_orbvoc_text(tmp, np.concatenate(descs), seed=ORBVOC_SEED)
+    os.replace(tmp, path)
+    return path, dict(stats, descriptors=sum(len(d) for d in descs)), time.perf_counter() - t
+
+
+def vocab_file_phase(cfg, dev, loop_dir: Path, loop_gt, frames, loop_ms, loop_multi_ms):
+    """Phase 23: the vocabulary file on the card (see the module's docstring).
+    ``loop_dir``: phase 22's PNG pairs of the loop circuit, ``loop_gt`` its
+    ground truth; ``frames``: phase 9's ``(lefts, rights, gt)``;
+    ``loop_ms`` phase 15's and ``loop_multi_ms`` phase 22's fps.txt ms/frame
+    (median, worst) in this call.  Returns drive A's launch counts."""
+    import numpy as np
+    import torch
+
+    from opendlv_perception_vision_orbslam2_tpu_torch import __main__ as cli
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import kfdb, loop_closing
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import selflocalization as sel_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as slam_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import vocabulary as voc
+    from opendlv_perception_vision_orbslam2_tpu_torch.models.frontend import process_stereo
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic, trajectory
+
+    t0 = time.perf_counter()
+    gc.collect()
+    path, stats, gen_s = orbvoc_file(cfg, dev)
+    W = stats["words"]
+    print(f"vocab_file: {path.name}: {stats['bytes']} bytes, {stats['nodes']} nodes, {W} words "
+          f"(k {synthetic.ORBVOC_BRANCHING}, L {synthetic.ORBVOC_LEVELS}) | "
+          + (f"written in {gen_s:.1f} s from {stats['descriptors']} descriptors of "
+             f"{ORBVOC_DRIVE['n_frames']} frames (seed {ORBVOC_DRIVE['seed']})"
+             if gen_s is not None else "cached in _build/")
+          + f" | a [K, W] float32 matrix: {64 * W * 4} bytes at K 64, {256 * W * 4} at K 256",
+          flush=True)
+
+    # -- 23A. the CLI with --vocFilePath over the loop circuit --------------------
+    n = len(loop_gt)
+    inner_sel, inner_load = sel_mod.Selflocalization, voc.load_text_vocabulary
+    inner_reg, inner_adopt = slam_mod.StereoSlam._register_keyframe, \
+        slam_mod.StereoSlam._adopt_vocab
+    inner_train, inner_lc = slam_mod.train_vocab_from_pool, loop_closing.loop_candidates
+    inner_hd = loop_closing.LoopCloser.harvest_detect
+    inner_verify, inner_clt = slam_mod.StereoSlam._dispatch_verify, \
+        loop_closing.compute_loop_transform
+    verifies = []                  # (frame, det, LoopMatch) of each verification
+    made, loaded, lost, capacity, reg_ms, adopted, trained, lc_events, nominated = \
+        [], [], [], [], [], [], [], [], {}
+    frame = [0]
+    syncs, track_sites = _SyncCounter(), {}    # host syncs made inside track, by site
+
+    class Recording(inner_sel):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def track(self, *args, **kwargs):
+            frame[0] = self.frame_count
+            before = dict(syncs.sites)
+            T = super().track(*args, **kwargs)
+            for site, k in syncs.sites.items():
+                if k != before.get(site, 0):
+                    track_sites[site] = track_sites.get(site, 0) + k - before.get(site, 0)
+            lost.append(self.slam.lost)
+            capacity.append(self.slam.map.kf_capacity)
+            frame[0] = self.frame_count
+            return T
+
+    def timed_load(p, *args, **kwargs):
+        t = time.perf_counter()
+        v = inner_load(p, *args, **kwargs)
+        loaded.append((v, time.perf_counter() - t))
+        return v
+
+    def timed_reg(slam, *args):
+        t = time.perf_counter()
+        out = inner_reg(slam, *args)
+        reg_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    def noted_adopt(slam, vocab):
+        adopted.append(frame[0])
+        return inner_adopt(slam, vocab)
+
+    def noted_train(*args):
+        trained.append(frame[0])
+        return inner_train(*args)
+
+    def timed_lc(m, db, kf_slot, *args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner_lc(m, db, kf_slot, *args)
+        b.record()
+        lc_events.append((frame[0], int(m.kf_capacity), a, b))
+        return out
+
+    def noted_hd(closer, pending):
+        det = inner_hd(closer, pending)
+        if det is not None:
+            _, n_valid, _, _, geo_n, _ = pending["fetch"].result()
+            geo = pending["run_geo"] and int(n_valid) >= 20 and \
+                int(geo_n) >= loop_closing.GEO_VOTE_MIN
+            nominated[det] = "geometric vote" if geo else "BoW"
+        return det
+
+    def noted_verify(slam, det):
+        verifies.append([frame[0], tuple(int(x) for x in det), None])
+        return inner_verify(slam, det)
+
+    def noted_clt(*args, **kwargs):
+        lm = inner_clt(*args, **kwargs)
+        if verifies and verifies[-1][2] is None:
+            verifies[-1][2] = lm
+        return lm
+
+    d = loop_dir.parent / "vocab_kitti"
+    shutil.copytree(loop_dir, d)
+    argv = [f"--kittiPath={d}"] + SERVICE_FLAGS + [f"--vocFilePath={path}"]
+    sel_mod.Selflocalization, voc.load_text_vocabulary = Recording, timed_load
+    slam_mod.StereoSlam._register_keyframe = timed_reg
+    slam_mod.StereoSlam._adopt_vocab = noted_adopt
+    slam_mod.train_vocab_from_pool, loop_closing.loop_candidates = noted_train, timed_lc
+    loop_closing.LoopCloser.harvest_detect = noted_hd
+    slam_mod.StereoSlam._dispatch_verify = noted_verify
+    loop_closing.compute_loop_transform = noted_clt
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with syncs:
+            t1 = time.perf_counter()
+            rc = cli.main(argv, ranks=1)
+            wall_s = time.perf_counter() - t1
+            torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        sel_mod.Selflocalization, voc.load_text_vocabulary = inner_sel, inner_load
+        slam_mod.StereoSlam._register_keyframe = inner_reg
+        slam_mod.StereoSlam._adopt_vocab = inner_adopt
+        slam_mod.train_vocab_from_pool, loop_closing.loop_candidates = inner_train, inner_lc
+        loop_closing.LoopCloser.harvest_detect = inner_hd
+        slam_mod.StereoSlam._dispatch_verify = inner_verify
+        loop_closing.compute_loop_transform = inner_clt
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if rc != 0 or not made or len(loaded) != 1:
+        raise AssertionError(f"vocab file: exit {rc}, {len(made)} pipelines, the file loaded "
+                             f"{len(loaded)} times")
+    slam = made[0].slam
+    file_vocab, load_s = loaded[0]
+    est = _dumps_complete(d, n)
+    if est is None:
+        raise AssertionError("vocab file: poses.txt, map.txt or fps.txt incomplete")
+    ate = trajectory.ate_rmse(est, list(loop_gt), align=True)
+    ms = np.array([1e3 / float(ln.split()[0]) for ln in
+                   (d / "fps.txt").read_text().split("\n") if ln.strip()])
+    timed = ms[LOOP_WARM:]
+    lost_at = [i for i, x in enumerate(lost) if x]
+    growth = sorted({(i, c) for i, c in enumerate(capacity)
+                     if i == 0 or c != capacity[i - 1]})
+    m, db = slam.map, slam.db
+    db_bytes = db.bow.numel() * db.bow.element_size() + db.has_row.numel()
+    lc_ms = {}
+    for f, K, a, b in lc_events:
+        lc_ms[K > LOOP_INITIAL_KF_SLOTS] = (f, K, a.elapsed_time(b))
+    closures = [(f, det, int(lm.n_inliers), int(lm.n_total), bool(lm.ok),
+                 nominated.get(det, "?")) for f, det, lm in verifies]
+    place_sites = {k: v for k, v in track_sites.items() if k.split(":")[0] in PLACE_FILES}
+    service_sites = {k: v for k, v in track_sites.items() if k.split(":")[0] in SERVICE_FILES}
+    outside = {k: v - track_sites.get(k, 0) for k, v in syncs.sites.items()
+               if v != track_sites.get(k, 0)}
+    worst = LOOP_WARM + np.argsort(-timed)[:3]
+    # after finish() (in the CLI's shutdown): every live keyframe's row and
+    # node table against the ones recomputed from the map with the file
+    words, nodes = voc.transform_all(slam.vocab, m.kf_desc, m.kf_feat_valid)
+    live = m.kf_valid
+    rows = voc.bow_vectors(slam.vocab, words)
+    row_err = float((rows - db.bow)[live].abs().max())
+    same_nodes = torch.equal(nodes[live], slam.kf_nodes[live])
+    del rows, words, nodes
+    # detection on the final database (1 GB at 256 slots), the card against
+    # the CPU, at the closing keyframe and the last one: shared-word counts
+    # identical, scores within 1e-6, the same candidates (among scores tied
+    # to 1e-6 the order is rounding's, as in reloc_card_vs_cpu)
+    host_m, host_db = to_cpu(m), to_cpu(db)
+    det_slots = sorted({det[0] for _, det, lm in verifies if lm is not None and bool(lm.ok)}
+                       | {slam.last_kf_slot})
+    det_rows, det_bits = [], True
+    for slot in det_slots:
+        t = time.perf_counter()
+        counts_b = kfdb.common_word_counts(host_db, host_db.bow[slot])
+        min_b = loop_closing.loop_min_score(host_m, host_db, slot)
+        slots_b, scores_b = loop_closing.loop_candidates(host_m, host_db, slot)
+        cpu_ms = 1e3 * (time.perf_counter() - t)
+        counts_a = kfdb.common_word_counts(db, db.bow[slot]).cpu()
+        min_a = loop_closing.loop_min_score(m, db, slot).cpu()
+        slots_a, scores_a = (x.cpu() for x in loop_closing.loop_candidates(m, db, slot))
+        gap = max(float((scores_a - scores_b).abs().max()), float((min_a - min_b).abs()))
+        tied = [float(sc) for sl, sc in zip(slots_a.tolist() + slots_b.tolist(),
+                                            scores_a.tolist() + scores_b.tolist())
+                if sl not in set(slots_a.tolist()) & set(slots_b.tolist())]
+        if not torch.equal(counts_a, counts_b) or gap > 1e-6 or any(
+                abs(sc - float(scores_b[-1])) > 1e-6 for sc in tied):
+            raise AssertionError(f"vocab file: detection at slot {slot} differs between card "
+                                 f"and CPU: {slots_a} {scores_a} vs {slots_b} {scores_b}")
+        det_bits &= torch.equal(scores_a, scores_b) and torch.equal(min_a, min_b)
+        det_rows.append(f"slot {slot}: {[c for c in slots_a.tolist() if c >= 0]}, scores "
+                        f"within {gap:.1e}, CPU {cpu_ms:.0f} ms")
+    del host_m, host_db
+    same_vocab = (slam.vocab_given and slam.vocab.n_words == W and all(
+        torch.equal(a.cpu(), b) for a, b in zip(slam.vocab[:4], file_vocab[:4])))
+    print(f"vocab_cli: main(python -m ... --kittiPath=<{n} PNG pairs, phase 22's> + deploy "
+          f"flags + --vocFilePath=<the file>, ranks=1), exit {rc} in {wall_s:.1f} s | the "
+          f"loader {load_s:.2f} s | keyframes {slam.n_keyframes} | map points "
+          f"{int(m.pt_valid.sum())} | lost {len(lost_at)} of {n} {lost_at} | loops "
+          f"{slam.loops_closed} | capacity (frame, kf slots) {growth} | ATE of poses.txt "
+          f"{ate:.4f} m (align=True, bound {LOOP_ATE_BOUND_M}) | fps.txt ms/frame over frames "
+          f"{LOOP_WARM}-{n - 1}: median {np.median(timed):.2f} worst {timed.max():.2f} (the "
+          f"worst 3 at frames {worst.tolist()}: {np.round(ms[worst], 1).tolist()}) (phase "
+          f"15 in this call: median "
+          + (f"{loop_ms:.2f}" if loop_ms is not None else "not run")
+          + f"; phase 22: median {loop_multi_ms[0]:.2f} worst {loop_multi_ms[1]:.2f}) | "
+          f"_register_keyframe host ms median {np.median(reg_ms):.2f} max {max(reg_ms):.2f} "
+          f"x{len(reg_ms)} | launches/frame {per_frame(launches, n)}", flush=True)
+    print(f"vocab_cli_place: the vocabulary replaced {len(adopted)} times, retrains "
+          f"{len(trained)}, given {slam.vocab_given}, the file's tensors "
+          f"{'kept' if same_vocab else 'NOT KEPT'} ({slam.vocab.n_words} words) | database "
+          f"{tuple(db.bow.shape)}, {db_bytes} bytes | rows of {int(live.sum())} live keyframes "
+          f"vs recomputed: max abs err {row_err:.1e}, node tables "
+          f"{'equal' if same_nodes else 'DIFFER'} | loop_candidates device ms (CUDA events): "
+          + "; ".join(f"{'after growth' if g else 'at 64 slots'}: frame {f}, K {K}, {t:.3f}"
+                      for g, (f, K, t) in sorted(lc_ms.items()))
+          + f" ({len(lc_events)} calls) | peak device memory {peak_gb:.3f} GB | host syncs "
+          f"inside track {sum(track_sites.values())} ({sum(track_sites.values()) / n:.3f} a "
+          f"frame), in {'/'.join(PLACE_FILES)}: {sum(place_sites.values())}, at the service "
+          f"sites: {sum(service_sites.values())}; every site: "
+          + ("; ".join(f"{k} x{v}" for k, v in sorted(track_sites.items(), key=lambda kv: -kv[1]))
+             or "none")
+          + " | outside track (the engine's set-up, the shutdown's dumps): "
+          + ("; ".join(f"{k} x{v}" for k, v in sorted(outside.items(), key=lambda kv: -kv[1]))
+             or "none"), flush=True)
+    print(f"vocab_cli_closure: verifications (frame dispatched, (slot, id, cand slot, cand id), "
+          f"n_inliers, n_total, ok, channel) {closures} | loop_candidates / loop_min_score / "
+          f"common_word_counts on the final database, card vs CPU: "
+          f"{'bit-equal' if det_bits else 'counts and candidates equal'} ({'; '.join(det_rows)})",
+          flush=True)
+    expected = {"fast_nms": 0, "fast_nms_pyramid": n, "gather_patches": n,
+                "gather_patches_multi": n}
+    if launches != expected:
+        raise AssertionError(f"vocab file: kernel launches {launches}, expected {expected}")
+    if not len(lost_at) < LOOP_LOST_SHARE * n:
+        raise AssertionError(f"vocab file: frames {lost_at} lost of {n}")
+    if not max(capacity) > LOOP_INITIAL_KF_SLOTS:
+        raise AssertionError(f"vocab file: the map never grew past {LOOP_INITIAL_KF_SLOTS} "
+                             f"keyframe slots {growth}")
+    if slam.loops_closed < 1:
+        raise AssertionError("vocab file: no loop closed")
+    if not ate < LOOP_ATE_BOUND_M:
+        raise AssertionError(f"vocab file: ATE {ate:.4f} m >= {LOOP_ATE_BOUND_M} m")
+    if adopted or trained or slam._vocab_thread is not None or not same_vocab or \
+            db.bow.shape[1] != W:
+        raise AssertionError(f"vocab file: the vocabulary was replaced at frames {adopted}, "
+                             f"retrained at {trained}, kept {same_vocab}, database "
+                             f"{tuple(db.bow.shape)}")
+    if not bool((db.has_row | ~live).all()) or row_err > 1e-6 or not same_nodes:
+        raise AssertionError(f"vocab file: stored rows (max abs err {row_err}) or node tables "
+                             "differ from the ones recomputed from the map")
+    if service_sites or place_sites:
+        raise AssertionError(f"vocab file: host syncs at the service sites {service_sites}, "
+                             f"in the place-recognition code {place_sites}")
+    del slam, made, db, m
+    t_a = time.perf_counter() - t0
+
+    # -- 23B. relocalization with the file: phase 12's drive and phase 13's kidnap --
+    lefts, rights, gt = frames
+    cam = cfg.camera
+    gc.collect()
+    slam = slam_mod.StereoSlam(cfg, vocab=file_vocab, device=dev, enable_loop_closing=False)
+    swaps = []
+    slam._adopt_vocab = lambda vocab: swaps.append(slam.n_keyframes)
+    lat = drive_slam(slam, lefts, rights, cam.fps)
+    slam.finish()
+    tried, fed = kidnap_drive(slam, lefts, rights, gt, cam.fps, torch.cuda.synchronize)
+    recovered = [t for t in tried if t[2]]
+    label, lost_end, err_end = fed[-1]
+    print(f"vocab_kidnap: StereoSlam(cfg, vocab=<the file>) relocalization on over phase 12's "
+          f"{len(lefts)} frames ({1e3 * float(np.median(lat[1:])):.2f} ms/frame median), "
+          f"keyframes {slam.n_keyframes}, database {tuple(slam.db.bow.shape)} | rungs tried: "
+          f"{fmt_tried(tried)} | per frame (lost, pose error m): "
+          + ", ".join(f"{lb} {'lost' if lo else 'ok'}" + (f" {e:.4f}" if e is not None else "")
+                      for lb, lo, e in fed)
+          + f" | recovered by {recovered[0][1] if recovered else 'no rung'} | bound "
+          f"{KIDNAP_BOUND_M} m", flush=True)
+    if swaps or slam.vocab.n_words != W:
+        raise AssertionError(f"vocab kidnap: the vocabulary was replaced at {swaps}")
+    if not recovered or lost_end or not err_end < KIDNAP_BOUND_M:
+        raise AssertionError(f"vocab kidnap: at {label} lost={lost_end}, pose error {err_end} m "
+                             f"(bound {KIDNAP_BOUND_M}), recovered by {recovered}")
+    slam.finish()
+    frame6 = process_stereo(torch.from_numpy(lefts[6]).to(dev),
+                            torch.from_numpy(rights[6]).to(dev), cfg, 0.0)
+    reloc_card_vs_cpu(slam, frame6, gt[6], cfg)
+    print(f"vocab_file_phase_seconds: phase 23 {time.perf_counter() - t0:.1f} (the file "
+          + (f"{gen_s:.1f}" if gen_s is not None else "cached")
+          + f", drive A {t_a:.1f} with the loader's {load_s:.1f})", flush=True)
     return launches
 
 
@@ -3726,7 +4114,12 @@ def main() -> int:
     service_multi_launches = service_multi_phase(cfg, dev, service_ms)
 
     # -- 22. a loop closure on every card -----------------------------------------
-    loop_multi_launches = loop_multi_phase(cfg, dev, circuit, loop_ms)
+    loop_dir = work / "loop_kitti"        # phase 15's circuit as PNG pairs, for 22 and 23
+    loop_multi_launches, loop_multi_ms = loop_multi_phase(cfg, dev, circuit, loop_ms, loop_dir)
+
+    # -- 23. the vocabulary file on the card ----------------------------------------
+    vocab_launches = vocab_file_phase(cfg, dev, loop_dir, circuit[2], (lefts, rights, gt),
+                                      loop_ms, loop_multi_ms)
     del circuit
 
     kernels = [
@@ -3742,6 +4135,7 @@ def main() -> int:
              launches_multi=kernel_launches(multi_launches, name),
              launches_service_multi=kernel_launches(service_multi_launches, name),
              launches_loop_multi=kernel_launches(loop_multi_launches, name),
+             launches_vocab_file=kernel_launches(vocab_launches, name),
              **results[name])
         for name in ("fast_nms", "gather_patches")
     ]

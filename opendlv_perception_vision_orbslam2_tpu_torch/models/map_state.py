@@ -24,6 +24,7 @@ from ..ops.hamming import popcount32
 from ..ops.indexing import (
     as_like, fill_at, row, scatter_add, scatter_max, scatter_min, scatter_set, set_row,
 )
+from ..optim.pose_graph import block_order, block_sum
 from .frame import FrameState
 
 LOOP_EDGE_CAP = 32     # persistent loop-edge capacity
@@ -417,11 +418,12 @@ def refresh_windowed(m: MapState, pt_slots, kf_slots) -> MapState:
     view = m.pt_pos[safe_b] - cam_centers[:, None, :]
     nrm = view / (torch.linalg.vector_norm(view, dim=-1, keepdim=True) + 1e-9)
     flat_loc = loc.reshape(-1)
-    normal_sum = torch.zeros((PL + 1, 3), dtype=torch.float32, device=dev)
-    normal_sum = scatter_add(normal_sum, flat_loc,
-                             torch.where(bound[..., None], nrm, 0.0).reshape(-1, 3))[:PL]
-    obs_count = torch.zeros((PL + 1,), dtype=torch.int32, device=dev)
-    obs_count = scatter_add(obs_count, flat_loc, bound.reshape(-1).to(torch.int32))[:PL]
+    # summed in the observations' order, on every device (a float index_add
+    # is atomic on the card, so its bits would hang on arrival order)
+    order, counts = block_order(flat_loc, PL + 1)
+    normal_sum = block_sum(torch.where(bound[..., None], nrm, 0.0).reshape(-1, 3), order,
+                           counts)[:PL]
+    obs_count = counts[:PL]               # unbound observations go to block PL
     normals = normal_sum / obs_count.clamp(min=1)[:, None]
 
     # --- scatter back -----------------------------------------------------

@@ -417,9 +417,12 @@ class StereoSlam:
     src/selflocalization.cpp:330-377 wiring).
 
     With ``enable_relocalization`` every adopted keyframe gets a BoW row in
-    the keyframe database and a node table; the vocabulary is ``vocab`` or is
-    trained from the first frame's descriptors and retrained as the map
-    grows.  A lost frame climbs four rungs: reference-keyframe BoW tracking,
+    the keyframe database and a node table; the vocabulary is ``vocab``, kept
+    for the whole run as the reference keeps the ORBvoc it loads
+    (src/selflocalization.cpp:335), or, without one, is trained from the
+    first frame's descriptors and retrained as the map grows (the reference
+    package retrains a given vocabulary away too, at 12 keyframes).  A lost
+    frame climbs four rungs: reference-keyframe BoW tracking,
     BoW relocalization, wide projection recovery, vocabulary-free global
     relocalization.  ``tracking_only`` (a plain attribute, it may be switched
     on once a map is built) is localization-only mode, the reference's
@@ -448,10 +451,11 @@ class StereoSlam:
     # max keyframes inserted-but-not-yet-mapped while a stage is in flight
     # (reference: insert while fewer than 3 wait, src/tracking.cpp:884-893)
     KF_QUEUE_CAP = 2
-    # The online vocabulary retrains as the map grows: first at 8 keyframes
-    # (the bootstrap vocabulary from one frame barely discriminates), then at
-    # every 4x keyframe count (32, 128, ...).  The reference loads an offline
-    # ORBvoc (src/orbvocabulary.cpp:39-118); none ships.
+    # Without a given vocabulary, the online one retrains as the map grows:
+    # first at 8 keyframes (the bootstrap vocabulary from one frame barely
+    # discriminates), then at every 4x keyframe count (32, 128, ...).  The
+    # reference loads an offline ORBvoc (src/orbvocabulary.cpp:39-118); none
+    # ships.
     VOCAB_REFRESH_AT = 8
     # keyframes sampled for the retrain pool (bounds the copy and the k-means)
     VOCAB_POOL_KFS = 32
@@ -479,6 +483,8 @@ class StereoSlam:
         # place recognition state; the vocabulary and its retrain schedule
         # survive a reset, the database and the node tables do not
         self.vocab = None if vocab is None else voc.vocabulary_to(vocab, self.device)
+        #: True: the caller's vocabulary, never retrained or replaced
+        self.vocab_given = vocab is not None
         self._next_vocab_refresh = self.VOCAB_REFRESH_AT
         self._vocab_swap_at = 0
         self._vocab_thread = None
@@ -624,8 +630,9 @@ class StereoSlam:
         (``train_vocab_from_pool``): the worker launches nothing and
         allocates nothing on the device.  The finished vocabulary is swapped
         in at exactly ``trigger + VOCAB_SWAP_DELAY`` keyframes, joining the
-        thread if it still runs: determinism is worth a rare bounded wait."""
-        if self.db is None:
+        thread if it still runs: determinism is worth a rare bounded wait.
+        A given vocabulary is never retrained."""
+        if self.db is None or self.vocab_given:
             return
         if self._vocab_thread is not None:
             if self.n_keyframes < self._vocab_swap_at:

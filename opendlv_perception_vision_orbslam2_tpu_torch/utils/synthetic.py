@@ -245,3 +245,120 @@ def render_loop_sequence(config: SystemConfig, n_frames: int = 200, n_points: in
     lefts = np.stack([view(T) for T in poses])
     rights = np.stack([view(T_rl @ T) for T in poses])
     return lefts, rights, poses, world
+
+
+# ---------------------------------------------------------------------------
+# A DBoW2 text vocabulary of ORBvoc's shape
+# ---------------------------------------------------------------------------
+
+ORBVOC_BRANCHING = 10      # ORBvoc.txt: k = 10, L = 6, 10^6 words
+ORBVOC_LEVELS = 6
+ORBVOC_TRAINED_LEVELS = 3
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
+
+
+def _flip_masks(rng, n: int, n_bits: int, chunk: int = 1 << 16) -> np.ndarray:
+    """``[n, 32]`` uint8 masks with ``n_bits`` distinct bits set each, drawn
+    ``chunk`` rows at a time (the draw does not depend on the machine)."""
+    out = np.empty((n, 32), np.uint8)
+    for s in range(0, n, chunk):
+        m = min(chunk, n - s)
+        pos = np.argpartition(rng.random((m, 256), dtype=np.float32), n_bits, axis=1)[:, :n_bits]
+        bits = np.zeros((m, 256), np.uint8)
+        np.put_along_axis(bits, pos, 1, axis=1)
+        out[s:s + m] = np.packbits(bits, axis=1, bitorder="little")
+    return out
+
+
+def _descend(level_desc, descs: np.ndarray, branching: int) -> np.ndarray:
+    """Leaf index of each descriptor ``[M, 32]`` uint8 in a full tree stored
+    level by level (``level_desc[d]``: the nodes at depth d + 1 in
+    breadth-first order); among children at equal Hamming distance the
+    first wins, as ``models.vocabulary.transform`` decides."""
+    cur = np.zeros(len(descs), np.int64)
+    lane = np.arange(branching)
+    for nodes in level_desc:
+        kids = cur[:, None] * branching + lane[None, :]
+        d = _POPCOUNT8[descs[:, None, :] ^ nodes[kids]].sum(axis=-1, dtype=np.int32)
+        cur = kids[np.arange(len(descs)), np.argmin(d, axis=1)]
+    return cur
+
+
+def write_orbvoc_text(path, descs, branching: int = ORBVOC_BRANCHING,
+                      levels: int = ORBVOC_LEVELS, trained_levels: int = ORBVOC_TRAINED_LEVELS,
+                      seed: int = 0) -> dict:
+    """Write a DBoW2/ORB-SLAM2 text vocabulary of ORBvoc.txt's shape (the
+    format ``models.vocabulary.load_text_vocabulary`` reads, reference:
+    src/orbvocabulary.cpp:39-118): header ``k L 0 0`` (TF-IDF, L1), then one
+    line per node below the root, ``parent_id is_leaf d0..d31 weight``, in
+    breadth-first order, so node ``i`` is line ``i``.  Every internal node
+    has ``branching`` children and every leaf sits at depth ``levels``:
+    ``sum(k^d, d=1..L)`` lines and ``k^L`` words (1,111,110 and 10^6 with
+    the defaults, ORBvoc's shape).
+
+    ``descs [M, 8]`` (int32 or uint32 words of 256-bit ORB descriptors) are
+    the training set, taken from images other than those the vocabulary
+    will see, as ORBvoc's were.  The tree:
+
+    - depths 1..``trained_levels``: ``train_vocabulary_np(descs, branching,
+      trained_levels, seed)``, the port's hierarchical k-means;
+    - every node that k-means left short of ``branching`` children, and
+      every node below ``trained_levels``, gets the missing children from
+      its own descriptor with ``16 + 8 * (levels - depth)`` distinct bits
+      flipped (16 at the leaves, a mask drawn per child from
+      ``np.random.default_rng(seed)``), fewer at each deeper level;
+    - the weights are DBoW2's idf, ``ln(N / n_i)`` over the ``N`` training
+      descriptors pushed through the finished tree, ``n_i`` of them reaching
+      word ``i``; a word that none reaches gets ``ln(N)``; internal nodes 0.
+
+    numpy only: the same descriptors and seed give the same file byte for
+    byte.  Returns ``{"nodes", "words", "bytes"}``."""
+    from ..models.vocabulary import _as_uint32, train_vocabulary_np
+
+    u32 = _as_uint32(descs)
+    node_desc, children, _, _, _, _, _ = train_vocabulary_np(u32, branching, trained_levels,
+                                                             seed)
+    node_u8 = node_desc.view(np.uint8).reshape(len(node_desc), 32)
+    rng = np.random.default_rng(seed)
+    # per level: the nodes' descriptors and their node ids in the trained
+    # tree (-1 for a made node)
+    parent_desc = node_u8[:1]
+    parent_trained = np.zeros(1, np.int64)
+    level_desc = []
+    for depth in range(1, levels + 1):
+        n = len(parent_desc) * branching
+        desc = np.repeat(parent_desc, branching, axis=0) ^ _flip_masks(
+            rng, n, 16 + 8 * (levels - depth))
+        trained = -np.ones(n, np.int64)
+        if depth <= trained_levels:
+            for p, t in enumerate(parent_trained):
+                kids = children[t][children[t] >= 0] if t >= 0 else ()
+                for j, c in enumerate(kids):
+                    desc[p * branching + j] = node_u8[c]
+                    trained[p * branching + j] = c
+        level_desc.append(desc)
+        parent_desc, parent_trained = desc, trained
+
+    n_words = branching ** levels
+    word = _descend(level_desc, u32.view(np.uint8).reshape(len(u32), 32), branching)
+    reached = np.bincount(word, minlength=n_words)
+    idf = np.log(len(u32) / np.maximum(reached, 1))
+
+    fmt = "%d %d " + " ".join(["%d"] * 32) + " %s\n"
+    n_lines = 0              # the nodes above the level, the root left out
+    with open(path, "w") as f:
+        f.write(f"{branching} {levels} 0 0\n")
+        for depth, desc in enumerate(level_desc, start=1):
+            leaf = int(depth == levels)
+            first_parent = n_lines - len(desc) // branching + 1     # 0 at depth 1: the root
+            for s in range(0, len(desc), 1 << 16):
+                part = desc[s:s + (1 << 16)]
+                ids = np.arange(s, s + len(part))
+                rows = np.concatenate([(first_parent + ids // branching)[:, None],
+                                       np.full((len(part), 1), leaf), part], axis=1).tolist()
+                weights = ([f"{w:.6f}" for w in idf[s:s + len(part)]] if leaf
+                           else ["0"] * len(part))
+                f.writelines(fmt % (*r, w) for r, w in zip(rows, weights))
+            n_lines += len(desc)
+        n_bytes = f.tell()
+    return {"nodes": n_lines, "words": n_words, "bytes": n_bytes}

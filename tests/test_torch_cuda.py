@@ -674,6 +674,35 @@ def test_pose_graph_twice_bit_equal_on_card():
 
 
 @pytest.mark.cuda
+def test_mapping_stage_twice_bit_equal_on_card():
+    """One mapping stage (point cull, triangulation, fusion, the windowed
+    descriptor and normal refresh, grid local BA, keyframe cull) run twice on
+    the card from the same map gives the same bits: the point normals sum in
+    a fixed order (``map_state.refresh_windowed``), where a float
+    ``index_add`` adds by atomics in arrival order."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as slam_mod
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic
+
+    cfg = _slam_cfg()
+    lefts, rights, _, _ = synthetic.render_stereo_sequence(cfg, n_frames=16, n_points=500,
+                                                           seed=5, step=0.25)
+    slam = slam_mod.StereoSlam(cfg, enable_loop_closing=False, enable_relocalization=False,
+                               device="cpu")
+    slam.force_sync_decisions = True
+    i = 0
+    while slam.n_keyframes < 3 and i < 15:
+        slam.process(lefts[i], rights[i], timestamp=i * 0.1)
+        i += 1
+    assert slam.n_keyframes >= 3
+    m, slot = _to(slam.map, "cuda"), torch.tensor(slam.last_kf_slot, device="cuda")
+    runs = [slam_mod.mapping_stage(m, slot, cfg, True, True, True, True) for _ in range(2)]
+    for name, a, b in zip(m._fields, runs[0][0], runs[1][0]):
+        assert torch.equal(a, b), name
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["blocked", "general"])
 def test_gba_chunk_twice_bit_equal_on_card(layout):
     """The GBA's fixed-order sums: one chunk run twice on the card gives the

@@ -270,6 +270,38 @@ def test_map_function_matches_reference(built, name):
     assert_map_equal(out, _np_tree(ref))
 
 
+def test_refresh_windowed_normal_sums_match_index_add(built):
+    """``refresh_windowed`` sums the normals by segments in the observations'
+    order (``block_order``, ``block_sum``: fixed on every device, where a
+    float ``index_add`` adds by atomics on the card).  On the CPU that is
+    ``index_add``'s order: the normals equal, bit for bit, the ``index_add``
+    sums of the same observations, the code it replaced."""
+    maps, slots, _, _ = built
+    m = from_jax_numpy(maps[-1])
+    pts, kfs = _arange_like(m, 0, 1000), _slots_like(m, [slots[-1], 0, 1, 2, 3, 4, -1])
+    out = tmap.refresh_windowed(m, pts, kfs)
+    P, K, PL = m.pt_capacity, m.kf_capacity, pts.shape[0]
+    ok = pts >= 0
+    g2l = torch.full((P,), PL, dtype=torch.int64)
+    g2l[pts[ok].long()] = torch.arange(PL)[ok]
+    kf = kfs.clamp(0, K - 1).long()
+    binds = m.kf_obs_point[kf]
+    bound = (m.kf_feat_valid[kf] & (binds >= 0) & (kfs >= 0)[:, None]
+             & m.kf_valid[kf][:, None])
+    safe_b = binds.clamp(0, P - 1).long()
+    loc = torch.where(bound, g2l[safe_b], PL).reshape(-1)
+    T = m.kf_T_cw[kf]
+    view = m.pt_pos[safe_b] + torch.einsum("kji,kj->ki", T[:, :3, :3], T[:, :3, 3])[:, None]
+    nrm = view / (torch.linalg.vector_norm(view, dim=-1, keepdim=True) + 1e-9)
+    sums = torch.zeros((PL + 1, 3)).index_add(
+        0, loc, torch.where(bound[..., None], nrm, 0.0).reshape(-1, 3))[:PL]
+    n = torch.zeros((PL + 1,), dtype=torch.int32).index_add(
+        0, loc, bound.reshape(-1).to(torch.int32))[:PL]
+    write = ok & (n > 0)
+    assert int(write.sum()) > 100 and int(n.max()) >= 3
+    assert torch.equal(out.pt_normal[pts[write].long()], (sums / n.clamp(min=1)[:, None])[write])
+
+
 def test_grow_map_and_alloc_match_reference(built):
     maps, _, _, _ = built
     ref = jmap.grow_map(jax.tree.map(jnp.asarray, maps[-1]), 64, 8192)
