@@ -14,6 +14,7 @@ import torch
 from ..ops import image as image_ops
 from ..ops import lie
 from ..ops import stereo as stereo_ops
+from ..utils import trace
 from ..utils.config import SystemConfig
 from .extractor import extract_from_pyramid, extract_from_pyramid_pair
 from .frame import Features, FrameState
@@ -57,6 +58,7 @@ def _undistort_features(feats: Features, config: SystemConfig,
     return out
 
 
+@trace.traced("frontend.process")
 def process_stereo(img_left, img_right, config: SystemConfig, timestamp=0.0):
     """Grayscale stereo pair ``[H, W]`` float32 tensors -> :class:`FrameState`
     on the images' device.  Pose initializes to identity."""
@@ -94,6 +96,7 @@ def process_stereo(img_left, img_right, config: SystemConfig, timestamp=0.0):
     )
 
 
+@trace.traced("frontend.process")
 def process_rgbd(img, depth_map, config: SystemConfig, timestamp=0.0):
     """Grayscale image + registered depth map ``[H, W]`` tensors ->
     :class:`FrameState` (GrabImageRGBD + ComputeStereoFromRGBD, reference:
@@ -140,6 +143,7 @@ def process_rgbd(img, depth_map, config: SystemConfig, timestamp=0.0):
     )
 
 
+@trace.traced("frontend.process")
 def process_mono(img, config: SystemConfig, timestamp=0.0):
     """Grayscale image ``[H, W]`` tensor -> :class:`FrameState`: extraction,
     the bounding-box filter and undistortion, no depth (GrabImageMonocular,

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from collections import deque
 
 import numpy as np
@@ -38,6 +37,7 @@ from ..io.messages import (
     chunk_map_messages,
 )
 from ..io.od4 import NullSession
+from ..utils import trace
 from ..utils import trajectory as traj_utils
 from ..utils import wgs84
 from ..utils.config import SystemConfig
@@ -111,10 +111,12 @@ class FramePublisher:
                                or self._queue[0][0] <= frame - MAX_PUBLISH_LAG):
             self._send(frame)
 
+    @trace.traced("service.flush")
     def flush(self, frame: int) -> None:
         while self._queue:
             self._send(frame)
 
+    @trace.traced("service.send")
     def _send(self, now: int) -> None:
         frame, fetch, has_map, has_pose = self._queue.popleft()
         host = fetch.result()
@@ -161,20 +163,22 @@ class Selflocalization:
     def track(self, img_left, img_right=None, timestamp: float = 0.0):
         """Mode-dispatched frame ingestion (Track, reference:
         src/selflocalization.cpp:533-558): stereo takes (L, R), RGB-D takes
-        (gray, depth-map), monocular takes a single image."""
-        t0 = time.time()
-        mode = self.config.camera_type
-        if mode == "rgbd":
-            T = self.slam.process_rgbd(img_left, img_right, timestamp)
-        elif mode == "mono":
-            T = self.slam.process(img_left, timestamp)
-        else:
-            T = self.slam.process(img_left, img_right, timestamp)
-        self.latencies.append(time.time() - t0)
-        self.frame_count += 1
-        self.publisher.post(self.frame_count, self.slam,
-                            with_map=self.frame_count % MAP_EVERY == 0)
-        self.publisher.drain(self.frame_count)
+        (gray, depth-map), monocular takes a single image.  The call is the
+        span ``service.track``, whose length is the frame's fps.txt
+        latency."""
+        with trace.span("service.track") as span:
+            mode = self.config.camera_type
+            if mode == "rgbd":
+                T = self.slam.process_rgbd(img_left, img_right, timestamp)
+            elif mode == "mono":
+                T = self.slam.process(img_left, timestamp)
+            else:
+                T = self.slam.process(img_left, img_right, timestamp)
+            self.frame_count += 1
+            self.publisher.post(self.frame_count, self.slam,
+                                with_map=self.frame_count % MAP_EVERY == 0)
+            self.publisher.drain(self.frame_count)
+        self.latencies.append(span.seconds)
         return T
 
     # ------------------------------------------------------------------

@@ -51,6 +51,7 @@ from opendlv_perception_vision_orbslam2_tpu_torch.models.mono_slam import Monocu
 from opendlv_perception_vision_orbslam2_tpu_torch.optim import pnp as tpnp
 from opendlv_perception_vision_orbslam2_tpu_torch.utils import config as tconfig
 from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic as tsyn
+from opendlv_perception_vision_orbslam2_tpu_torch.utils import trace as ttrace
 from opendlv_perception_vision_orbslam2_tpu_torch.utils import trajectory as ttraj
 from opendlv_perception_vision_orbslam2_tpu_torch.utils.convert import from_jax_numpy
 from test_torch_io import CAM, CLI_FLAGS, ORB, Recorder, _kitti_dir
@@ -129,6 +130,21 @@ def _clock(monkeypatch, module):
     monkeypatch.setattr(module, "time", types.SimpleNamespace(time=lambda: float(next(t))))
 
 
+def _engine_clock(monkeypatch, engine):
+    """The port's fps.txt reads its recorder's ``service.track`` span: a
+    recorder clock that only the engine's step moves, by 0.05 s, gives the
+    file of ``_clock``."""
+    now = [0]
+    monkeypatch.setattr(ttrace, "_clock", lambda: now[0])
+    step = engine.process
+
+    def process(*args):
+        now[0] += 50_000_000
+        return step(*args)
+
+    engine.process = process
+
+
 def _drive(sel, engine, out_dir):
     for i in range(engine.n):
         sel.track(np.zeros((4, 4), np.float32), np.zeros((4, 4), np.float32), i * 0.1)
@@ -138,8 +154,7 @@ def _drive(sel, engine, out_dir):
 def _run_both(tmp_path, monkeypatch, deferred=False, cfg_kw=None):
     """Both packages' ``Selflocalization`` over a stub engine each; returns
     (port recorder, port engine, reference recorder, reference engine)."""
-    for module in (tsel, jsel):
-        _clock(monkeypatch, module)
+    _clock(monkeypatch, jsel)
     cfg_kw = cfg_kw or dict(ref_latitude=57.70716, ref_longitude=11.93827, start_heading=0.4)
     runs = []
     for sel_mod, cfg_mod, wrap, kw, name in (
@@ -148,6 +163,8 @@ def _run_both(tmp_path, monkeypatch, deferred=False, cfg_kw=None):
         rec = Recorder()
         sel = sel_mod.Selflocalization(cfg_mod.SystemConfig(**cfg_kw), od4=rec, **kw)
         engine = sel.slam = StubEngine(lambda a, w=wrap: w(np.array(a)), deferred)
+        if name == "port":
+            _engine_clock(monkeypatch, engine)
         (tmp_path / name).mkdir()
         _drive(sel, engine, tmp_path / name)
         assert rec.closed

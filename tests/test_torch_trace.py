@@ -1,0 +1,218 @@
+"""The port's recorder (``utils/trace.py``) and the spans and counters the
+program writes into it, on the CPU.
+
+- The ring keeps the newest ``RING_SIZE`` records and stamps them with
+  ``time.perf_counter_ns``; a span is recorded when its block raises too.
+- Over a 20-frame RGB-D drive through ``Selflocalization`` (512x256, 600
+  features, a keyframe every few frames, so that the engine passes 5
+  keyframes and defers some decisions): every tracked frame has one
+  ``slam.track`` inside its ``service.track`` and one ``frontend.process``
+  before it; the four ``slam.track.*`` stages lie inside it, in order, and
+  take at least 95 % of it; keyframe frames have ``slam.insert``, and the
+  stage's ``place.register`` follows in that frame, the next or the
+  shutdown; one
+  decision counter a tracked frame, ``slam.decision_deferred`` exactly when
+  the engine's pipeline is healthy, each with its ``slam.decision_wait``;
+  one ``service.send`` a Geolocation; fps.txt's latencies are the
+  ``service.track`` spans' lengths.
+"""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from opendlv_perception_vision_orbslam2_tpu_torch.models import selflocalization as tsel
+from opendlv_perception_vision_orbslam2_tpu_torch.utils import config as tconfig
+from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic as tsyn
+from opendlv_perception_vision_orbslam2_tpu_torch.utils import trace
+from opendlv_perception_vision_orbslam2_tpu_torch.utils import trajectory as ttraj
+
+torch.set_num_threads(2)
+
+CAM = dict(fx=320.0, fy=320.0, cx=256.0, cy=128.0, bf=160.0, width=512, height=256, fps=10.0)
+ORB = dict(n_features=600, max_keypoints=1024, n_levels=4)
+N_FRAMES = 20
+STAGES = ("slam.track.motion_match", "slam.track.first_solve", "slam.track.local_map",
+          "slam.track.second_solve")
+
+
+class Sink:
+    def __init__(self):
+        self.sent = []
+
+    def send(self, message, timestamp=None, sender_stamp=0):
+        self.sent.append(message)
+
+    def close(self):
+        pass
+
+
+def test_ring_keeps_the_newest_records():
+    assert trace.RING_SIZE == 1 << 16
+    assert trace.RECORDER._ring.maxlen == trace.RING_SIZE
+    rec = trace.Recorder()
+    for k in range(trace.RING_SIZE + 5):
+        rec.count("c", k)
+    out = rec.records()
+    assert len(out) == trace.RING_SIZE
+    assert [r.n for r in out[:2]] == [5, 6] and out[-1].n == trace.RING_SIZE + 4
+    small = trace.Recorder(size=3)
+    for k in range(7):
+        small.count("c", k)
+    assert [r.n for r in small.records()] == [4, 5, 6]
+
+
+def test_records_are_stamped_by_perf_counter_ns():
+    rec = trace.Recorder()
+    t0 = time.perf_counter_ns()
+    with rec.span("a") as s:
+        rec.count("c", 3)
+    t1 = time.perf_counter_ns()
+    c, a = rec.records()
+    assert isinstance(a, trace.Span) and isinstance(c, trace.Count)
+    assert a.name == "a" and t0 <= a.start_ns <= c.t_ns <= a.end_ns <= t1
+    assert (c.name, c.n) == ("c", 3)
+    assert s.seconds == (a.end_ns - a.start_ns) / 1e9
+    with pytest.raises(ValueError):
+        with rec.span("raises"):
+            raise ValueError
+    assert rec.records()[-1].name == "raises"
+    assert [r.name for r in rec.records(since_ns=t1)] == ["raises"]
+
+    @rec.traced("fn")
+    def fn(x):
+        """doc"""
+        return x + 1
+
+    assert fn(1) == 2 and fn.__name__ == "fn" and fn.__doc__ == "doc"
+    assert rec.records()[-1].name == "fn"
+
+
+@pytest.fixture(scope="module")
+def drive(tmp_path_factory):
+    """``Selflocalization`` over the drive: each frame's ``(start, end)`` on
+    the recorder's clock, whether the engine's pipeline was healthy and its
+    keyframe count after it; the records of the drive and its shutdown; the
+    latencies and the dump directory."""
+    cfg = tconfig.SystemConfig(
+        camera=tconfig.CameraConfig(**CAM), orb=tconfig.OrbConfig(**ORB),
+        tracking=tconfig.TrackingConfig(max_frames=1, th_depth=35.0, depth_map_factor=1.0),
+        camera_type="rgbd", max_keyframes=32, max_map_points=16384)
+    grays, depths, _, _ = tsyn.render_rgbd_sequence(cfg, n_frames=N_FRAMES, n_points=900,
+                                                    seed=5, step=0.6)
+    sink = Sink()
+    sel = tsel.Selflocalization(cfg, od4=sink, device="cpu")
+    t_start = time.perf_counter_ns()
+    frames = []
+    for i in range(N_FRAMES):
+        a = time.perf_counter_ns()
+        sel.track(grays[i], depths[i], i * 0.1)
+        b = time.perf_counter_ns()
+        frames.append({"start": a, "end": b, "healthy": sel.slam._pipeline_healthy,
+                       "kfs": sel.slam.n_keyframes, "lost": sel.slam.lost})
+    out = tmp_path_factory.mktemp("dumps")
+    sel.shutdown(str(out))
+    records = trace.records(since_ns=t_start)
+    for f in frames:
+        f["records"] = [r for r in records if f["start"] <= r[1] and _end(r) <= f["end"]]
+    return {"frames": frames, "records": records, "latencies": list(sel.latencies),
+            "dir": out, "map_sizes": list(sel.map_sizes), "sink": sink, "sel": sel}
+
+
+def _end(r):
+    return r.end_ns if isinstance(r, trace.Span) else r.t_ns
+
+
+def _spans(f, name):
+    return [r for r in f["records"] if isinstance(r, trace.Span) and r.name == name]
+
+
+def _counts(f, name):
+    return [r for r in f["records"] if isinstance(r, trace.Count) and r.name == name]
+
+
+def test_the_drive_defers_some_decisions_and_makes_keyframes(drive):
+    frames = drive["frames"]
+    assert not any(f["lost"] for f in frames)
+    healthy = [f["healthy"] for f in frames[1:]]
+    assert any(healthy) and not all(healthy)
+    assert frames[-1]["kfs"] >= 6
+
+
+def test_every_tracked_frame_has_one_track_span_inside_its_service_span(drive):
+    for k, f in enumerate(drive["frames"]):
+        (svc,) = _spans(f, "service.track")
+        tracks = _spans(f, "slam.track")
+        assert len(tracks) == (0 if k == 0 else 1), k
+        (front,) = _spans(f, "frontend.process")
+        assert svc.start_ns <= front.start_ns <= front.end_ns <= svc.end_ns
+        for t in tracks:
+            assert svc.start_ns <= front.end_ns <= t.start_ns <= t.end_ns <= svc.end_ns
+
+
+def test_the_four_stages_tile_the_track_span_in_order(drive):
+    for f in drive["frames"][1:]:
+        (t,) = _spans(f, "slam.track")
+        stages = [_spans(f, name) for name in STAGES]
+        assert all(len(s) == 1 for s in stages)
+        prev = t.start_ns
+        for (s,) in stages:
+            assert prev <= s.start_ns <= s.end_ns <= t.end_ns
+            prev = s.end_ns
+        covered = sum(s.end_ns - s.start_ns for (s,) in stages)
+        assert covered >= 0.95 * (t.end_ns - t.start_ns)
+
+
+def test_keyframe_frames_insert_and_register(drive):
+    frames = drive["frames"]
+    kf_frames = [k for k in range(N_FRAMES)
+                 if frames[k]["kfs"] > (frames[k - 1]["kfs"] if k else 0)]
+    assert len(kf_frames) >= 5
+    after = {"records": [r for r in drive["records"] if r[1] > frames[-1]["end"]]}
+    for k in kf_frames:
+        assert _spans(frames[k], "slam.insert"), k
+        # the stage is adopted at once, at the next frame's start, or at shutdown
+        later = frames[k + 1] if k + 1 < N_FRAMES else after
+        assert _spans(frames[k], "place.register") or _spans(later, "place.register"), k
+    # every keyframe is mapped and registered once; a keyframe queued behind
+    # an in-flight stage is inserted again onto the settled map
+    n_kf = drive["sel"].slam.n_keyframes
+    recs = drive["records"]
+    n = {name: sum(isinstance(r, trace.Span) and r.name == name for r in recs)
+         for name in ("slam.insert", "slam.mapping", "place.register")}
+    assert n["slam.mapping"] == n["place.register"] == n_kf <= n["slam.insert"]
+
+
+def test_decision_counters_follow_the_path_step_takes(drive):
+    n_sync = n_deferred = 0
+    for f in drive["frames"][1:]:
+        sync, deferred = _counts(f, "slam.decision_sync"), _counts(f, "slam.decision_deferred")
+        assert len(sync) + len(deferred) == 1
+        assert bool(deferred) == f["healthy"]
+        waits = _spans(f, "slam.decision_wait")
+        (track,) = _spans(f, "slam.track")
+        if sync:
+            assert len(waits) == 1 and waits[0].start_ns >= track.end_ns
+        assert len(waits) <= 1
+        n_sync += len(sync)
+        n_deferred += len(deferred)
+    assert n_sync + n_deferred == N_FRAMES - 1 and n_sync and n_deferred
+
+
+def test_one_send_span_a_geolocation_and_a_flush_at_shutdown(drive):
+    recs = drive["records"]
+    sends = [r for r in recs if isinstance(r, trace.Span) and r.name == "service.send"]
+    geo = [m for m in drive["sink"].sent if isinstance(m, tsel.Geolocation)]
+    assert len(sends) == len(geo) == N_FRAMES
+    assert sum(isinstance(r, trace.Span) and r.name == "service.flush" for r in recs) == 1
+
+
+def test_fps_txt_latencies_are_the_service_track_spans(drive):
+    spans = [s for f in drive["frames"] for s in _spans(f, "service.track")]
+    assert drive["latencies"] == [(s.end_ns - s.start_ns) / 1e9 for s in spans]
+    want = drive["dir"] / "want.txt"
+    ttraj.write_fps_file(str(want), drive["latencies"], drive["map_sizes"])
+    assert (drive["dir"] / "fps.txt").read_bytes() == want.read_bytes()
+    assert len(np.unique(drive["latencies"])) > 1
