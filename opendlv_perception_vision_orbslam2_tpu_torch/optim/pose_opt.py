@@ -10,21 +10,31 @@ Every function carries a leading chain axis C (the robust estimate runs two
 GN chains at once).  The reference's early exit (``while_loop`` until
 ``||dx||^2 <= 1e-13``) becomes a per-chain ``done`` mask that freezes T
 after the step that converged: the same result with no host sync.
+
+Every shape of the 4 x 10 iterations is fixed by ``C`` and ``K``, so on the
+card the chain set replays a CUDA graph of ``_pose_optimize_chains``
+(some 7,700 kernels a chain set), captured at the first call of its shape
+and intrinsics: the same kernels on the same inputs, bit for bit the eager
+answer, for one launch of host time.  CPU tensors run the eager code.
 """
 
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
 
 from ..ops import lie
+from ..utils import trace
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
 ITS_PER_ROUND = 10
 N_ROUNDS = 4
+#: captured chain-set graphs kept, the least recently used dropped first
+GRAPH_CACHE_SIZE = 8
 
 
 class PoseObs(NamedTuple):
@@ -137,11 +147,62 @@ def _pose_optimize_chains(T_init, obs: PoseObs, fx, fy, cx, cy, bf):
     return T, inliers, inliers.sum(dim=-1)
 
 
+class _ChainGraph:
+    """``_pose_optimize_chains`` captured for one shape and camera: static
+    copies of its inputs, the graph, and its outputs in the graph's pool."""
+
+    def __init__(self, args, cam):
+        self.inputs = [a.clone(memory_format=torch.contiguous_format) for a in args]
+        T, *obs = self.inputs
+        obs = PoseObs(*obs)
+        side = torch.cuda.Stream(T.device)
+        side.wait_stream(torch.cuda.current_stream(T.device))
+        with torch.cuda.stream(side):   # warm-up: library handles and workspaces
+            _pose_optimize_chains(T, obs, *cam)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the engine's daemon threads may wait on events meanwhile
+        with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+            self.outputs = _pose_optimize_chains(T, obs, *cam)
+        torch.cuda.current_stream(T.device).wait_stream(side)
+
+    def __call__(self, args):
+        for dst, src in zip(self.inputs, args):
+            dst.copy_(src)
+        self.graph.replay()
+        # a later replay overwrites the outputs: the caller keeps copies
+        return tuple(x.clone() for x in self.outputs)
+
+
+_GRAPHS: OrderedDict = OrderedDict()
+
+
+def _solve_chains(T_init, obs: PoseObs, fx, fy, cx, cy, bf):
+    """``_pose_optimize_chains``, replayed from its CUDA graph for CUDA
+    tensors (captured at the first call of each shape, dtype, device and
+    intrinsics) and run eagerly for CPU tensors."""
+    if T_init.device.type != "cuda":
+        trace.count("pose.solve_eager")
+        return _pose_optimize_chains(T_init, obs, fx, fy, cx, cy, bf)
+    args = (T_init, *obs)
+    cam = tuple(float(v) for v in (fx, fy, cx, cy, bf))
+    key = (cam, T_init.device, tuple((a.shape, a.dtype) for a in args))
+    graph = _GRAPHS.pop(key, None)
+    if graph is None:
+        with torch.cuda.device(T_init.device):
+            graph = _ChainGraph(args, cam)
+        trace.count("pose.graph_capture")
+    _GRAPHS[key] = graph
+    if len(_GRAPHS) > GRAPH_CACHE_SIZE:
+        _GRAPHS.popitem(last=False)
+    trace.count("pose.solve_graphed")
+    return graph(args)
+
+
 def pose_optimize(T_cw_init, obs: PoseObs, *, fx: float, fy: float,
                   cx: float, cy: float, bf: float):
     """Optimize a single pose against fixed world points.  Returns
     ``(T_cw, inlier_mask, n_inliers)`` (reference: src/orboptimizer.cpp:444-459)."""
-    T, inl, n = _pose_optimize_chains(
+    T, inl, n = _solve_chains(
         T_cw_init[None], obs._replace(valid=obs.valid[None]), fx, fy, cx, cy, bf
     )
     return T[0], inl[0], n[0]
@@ -174,8 +235,7 @@ def robust_pose_estimate(T_pred, obs: PoseObs, generator=None, *, fx: float,
     T_pnp = lie.make_T(res.R, res.t)
     T_inits = torch.stack([T_pred, T_pnp])
     valids = torch.stack([obs.valid, obs.valid & res.inliers])
-    T_ab, _, _ = _pose_optimize_chains(T_inits, obs._replace(valid=valids),
-                                       fx, fy, cx, cy, bf)
+    T_ab, _, _ = _solve_chains(T_inits, obs._replace(valid=valids), fx, fy, cx, cy, bf)
     inl = _classify(T_ab, obs, obs.valid, fx, fy, cx, cy, bf)   # [2, K]
     n = inl.sum(dim=-1)
     use_b = n[1] > n[0]

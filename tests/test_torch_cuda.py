@@ -8,6 +8,8 @@ jax (the card's machine has none), so it runs there on its own:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -286,6 +288,117 @@ def test_refine_pose_on_card_equals_cpu():
     assert int(inl_cpu.sum()) >= 60 and torch.equal(inl.cpu(), inl_cpu)
     assert float((T.cpu() - T_cpu).abs().max()) < 1e-3
     assert float(torch.linalg.vector_norm(T.cpu()[:3, 3] - f["T_gt"][:3, 3])) < 0.05
+
+
+# ---- the pose solve's chain set replayed from a CUDA graph: bit for bit the
+# eager ``_pose_optimize_chains`` on the card ---------------------------------------
+
+POSE_CAM = dict(fx=320.0, fy=320.0, cx=256.0, cy=128.0, bf=160.0)
+
+
+def _pose_case(seed, n=200, outlier_frac=0.0, mono_frac=0.0):
+    """A pose problem on the card (``tests/test_torch_tracking.py``'s, with
+    a share of monocular edges): the perturbed start and the observations."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.ops import lie
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim.pose_opt import PoseObs
+
+    rng = np.random.default_rng(seed)
+    p_w = np.stack([rng.uniform(-10, 10, n), rng.uniform(-4, 4, n),
+                    rng.uniform(4, 40, n)], axis=-1).astype(np.float32)
+    xi = (rng.standard_normal(6) * [0.3, 0.3, 0.3, 0.05, 0.05, 0.05]).astype(np.float32)
+    T_true = lie.exp_se3(torch.from_numpy(xi)).numpy()
+    p_c = p_w @ T_true[:3, :3].T + T_true[:3, 3]
+    c = POSE_CAM
+    uv = np.stack([c["fx"] * p_c[:, 0] / p_c[:, 2] + c["cx"],
+                   c["fy"] * p_c[:, 1] / p_c[:, 2] + c["cy"]], axis=-1)
+    ur = uv[:, 0] - c["bf"] / p_c[:, 2]
+    uv += rng.standard_normal(uv.shape) * 0.3
+    n_out = int(outlier_frac * n)
+    if n_out:
+        idx = rng.choice(n, n_out, replace=False)
+        uv[idx] += rng.uniform(-40, 40, (n_out, 2))
+    ur[rng.uniform(size=n) < mono_frac] = -1.0
+    delta = (rng.standard_normal(6) * [0.1, 0.1, 0.1, 0.01, 0.01, 0.01]).astype(np.float32)
+    T0 = lie.exp_se3(torch.from_numpy(delta)) @ torch.from_numpy(T_true)
+    valid = rng.uniform(size=n) < 0.95
+    obs = PoseObs(*(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+        p_w, uv.astype(np.float32), ur.astype(np.float32), np.ones(n, np.float32), valid)))
+    return T0.cuda(), obs
+
+
+def _pose_counts(t0):
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import trace
+
+    out = {}
+    for r in trace.records(since_ns=t0):
+        if isinstance(r, trace.Count) and r.name.startswith("pose."):
+            out[r.name] = out.get(r.name, 0) + r.n
+    return out
+
+
+def _assert_equal(got, want):
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,outliers,mono", [
+    (0, 0.0, 0.0), (1, 0.3, 0.0), (2, 0.0, 1.0), (3, 0.3, 1.0), (4, 0.1, 0.5), (5, 0.25, 0.3),
+])
+def test_graphed_pose_solves_equal_eager_chains_on_card(monkeypatch, seed, outliers, mono):
+    """``pose_optimize`` (C = 1) and ``robust_pose_estimate`` (C = 2) replay
+    their chain set's graph; T, inliers and counts equal the eager
+    ``_pose_optimize_chains`` on the same card with ``torch.equal``."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim import pnp, pose_opt
+
+    T0, obs = _pose_case(seed, outlier_frac=outliers, mono_frac=mono)
+    t0 = time.perf_counter_ns()
+    graphed = pose_opt.pose_optimize(T0, obs, **POSE_CAM)
+    T, inl, n = pose_opt._pose_optimize_chains(T0[None], obs._replace(valid=obs.valid[None]),
+                                               *POSE_CAM.values())
+    _assert_equal(graphed, (T[0], inl[0], n[0]))
+    assert int(graphed[2]) > 100
+
+    sets = pnp.sample_sets(obs.valid, torch.Generator("cuda").manual_seed(seed))
+    robust = pose_opt.robust_pose_estimate(T0, obs, pnp_idx=sets, **POSE_CAM)
+    assert _pose_counts(t0).get("pose.solve_graphed") == 2
+    monkeypatch.setattr(pose_opt, "_solve_chains", pose_opt._pose_optimize_chains)
+    _assert_equal(robust, pose_opt.robust_pose_estimate(T0, obs, pnp_idx=sets, **POSE_CAM))
+
+
+@pytest.mark.cuda
+def test_pose_graphs_capture_once_a_shape_and_keep_held_outputs_on_card():
+    """Several problems through one graph in a row: one capture a shape,
+    one replay a call, and what call 1 returned is unchanged after call 2.
+    The cache keeps the ``GRAPH_CACHE_SIZE`` most recent shapes."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.optim import pose_opt
+
+    pose_opt._GRAPHS.clear()
+    t0 = time.perf_counter_ns()
+    held = []
+    for seed in range(4):
+        T0, obs = _pose_case(10 + seed, outlier_frac=0.2, mono_frac=0.3)
+        out = pose_opt.pose_optimize(T0, obs, **POSE_CAM)
+        held.append((out, [x.clone() for x in out]))
+        _assert_equal(out, [x[0] for x in pose_opt._pose_optimize_chains(
+            T0[None], obs._replace(valid=obs.valid[None]), *POSE_CAM.values())])
+    for out, copy in held:
+        _assert_equal(out, copy)
+    for seed in range(3):
+        T0, obs = _pose_case(20 + seed, outlier_frac=0.3)
+        pose_opt.robust_pose_estimate(T0, obs, torch.Generator("cuda").manual_seed(seed),
+                                      **POSE_CAM)
+    T0, obs = _pose_case(30, n=105, outlier_frac=0.3)
+    pose_opt.pose_optimize(T0, obs, **POSE_CAM)
+    pose_opt.pose_optimize(T0, obs, **dict(POSE_CAM, bf=120.0))
+    assert _pose_counts(t0) == {"pose.graph_capture": 4, "pose.solve_graphed": 9}
+    assert len(pose_opt._GRAPHS) == 4
+    for n in range(110, 120):
+        pose_opt.pose_optimize(*_pose_case(40, n=n), **POSE_CAM)
+    assert len(pose_opt._GRAPHS) == pose_opt.GRAPH_CACHE_SIZE
+    pose_opt._GRAPHS.clear()
 
 
 # ---- loop closing on the card vs the CPU: the ring of tests/test_loop_closing.py

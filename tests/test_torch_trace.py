@@ -201,6 +201,18 @@ def test_decision_counters_follow_the_path_step_takes(drive):
     assert n_sync + n_deferred == N_FRAMES - 1 and n_sync and n_deferred
 
 
+def test_each_tracked_frame_solves_its_two_poses_eagerly_on_the_cpu(drive):
+    """The first and second solves inside ``slam.track`` count one
+    ``pose.solve_eager`` each; a CPU run captures and replays no graph."""
+    for f in drive["frames"][1:]:
+        (track,) = _spans(f, "slam.track")
+        solves = _counts(f, "pose.solve_eager")
+        assert len(solves) == 2
+        assert all(track.start_ns <= c.t_ns <= track.end_ns for c in solves)
+    for name in ("pose.solve_graphed", "pose.graph_capture"):
+        assert not any(isinstance(r, trace.Count) and r.name == name for r in drive["records"])
+
+
 def test_one_send_span_a_geolocation_and_a_flush_at_shutdown(drive):
     recs = drive["records"]
     sends = [r for r in recs if isinstance(r, trace.Span) and r.name == "service.send"]

@@ -23,6 +23,8 @@ Tolerances, and why:
   (tests/test_tracking.py: ATE < 0.10 m on the 12-frame fixture).
 """
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,6 +214,26 @@ def test_robust_pose_estimate_matches_reference_given_its_sets():
         pnp_idx=_t(_reference_sets(obs["valid"])))
     np.testing.assert_allclose(T_t.numpy(), _np(T_j), rtol=0, atol=1e-4)
     assert int(n_t) == int(n_j)
+
+
+def test_cpu_pose_solves_run_eagerly_and_never_capture():
+    """CPU tensors take the eager chain set: each solve counts
+    ``pose.solve_eager``, none captures or replays a CUDA graph."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import trace
+
+    T_true, obs = _pose_problem(4, outlier_frac=0.2)
+    obs_t = tpose.PoseObs(**{k: _t(v) for k, v in obs.items()})
+    T0 = _t(T_true)
+    t0 = time.perf_counter_ns()
+    tpose.pose_optimize(T0, obs_t, **CAM)
+    tpose.robust_pose_estimate(T0, obs_t, torch.Generator().manual_seed(0), **CAM)
+    tpose.pose_optimize(T0, obs_t._replace(valid=obs_t.valid & (obs_t.sigma2 > 0)), **CAM)
+    counts = {}
+    for r in trace.records(since_ns=t0):
+        if isinstance(r, trace.Count):
+            counts[r.name] = counts.get(r.name, 0) + r.n
+    assert counts == {"pose.solve_eager": 3}
+    assert not tpose._GRAPHS
 
 
 # ------------------------------------------------------------- the VO slice
