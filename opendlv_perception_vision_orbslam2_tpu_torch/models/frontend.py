@@ -74,12 +74,13 @@ def process_stereo(img_left, img_right, config: SystemConfig, timestamp=0.0):
     feat_l = _bbox_filter(feat_l, config)
     feat_r = _bbox_filter(feat_r, config)
 
-    atlas_l, offsets = stereo_ops.build_atlas([lv[0] for lv in levels_lr])
-    atlas_r, _ = stereo_ops.build_atlas([lv[1] for lv in levels_lr])
-    u_right, depth = stereo_ops.stereo_match(
-        feat_l, feat_r, atlas_l, atlas_r, offsets,
-        orb.scale_factor, cam.fx, cam.bf,
-    )
+    with trace.span("frontend.stereo_match"):
+        atlas_l, offsets = stereo_ops.build_atlas([lv[0] for lv in levels_lr])
+        atlas_r, _ = stereo_ops.build_atlas([lv[1] for lv in levels_lr])
+        u_right, depth = stereo_ops.stereo_match(
+            feat_l, feat_r, atlas_l, atlas_r, offsets,
+            orb.scale_factor, cam.fx, cam.bf,
+        )
     feat_l = feat_l._replace(u_right=u_right, depth=depth)
     feat_l = _undistort_features(feat_l, config, shift_uright=True)
 

@@ -22,6 +22,7 @@ from ..optim.gba import (
 )
 from ..parallel.collectives import group_active
 from ..parallel.serve import EngineGBA
+from ..utils import trace
 from ..utils.config import SystemConfig
 from .map_state import MapState, recompute_covisibility
 
@@ -135,6 +136,7 @@ class IncrementalGBA:
         self.snap_pt_valid = m.pt_valid
         self.snap_pt_first_kf_id = m.pt_first_kf_id
 
+    @trace.traced("gba.chunk")
     def step(self) -> bool:
         """One bounded chunk; True when the solve is finished."""
         cam = self.config.camera
@@ -147,6 +149,7 @@ class IncrementalGBA:
         self.iters_left -= 1
         return self.iters_left <= 0
 
+    @trace.traced("gba.merge")
     def merge(self, m: MapState) -> MapState:
         T_new, pts_new, _, _ = self.carry
         return _merge_gba(m, T_new, pts_new, self.snap_T, self.snap_kf_id, self.snap_kf_valid,

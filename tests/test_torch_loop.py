@@ -23,7 +23,9 @@ Tolerances, and why:
   eigenvector itself is undetermined; no set here has a relative gap below
   1e-3 (asserted);
 - pose graph: poses 1e-4, scales 1e-5 (twenty float32 solves of the
-  [7K, 7K] system, summed in another order);
+  [7K, 7K] system, summed in another order), the reference given the port's
+  damping, velocity rule and published pose (``corrected_like_the_port``,
+  applied to every test here);
 - essential edges, detection (candidates, consistency groups, votes) and the
   Sim3 pipeline's pairs and counts: identical (integer distances and
   first-minimum ties).  BoW candidate scores within 1e-6: candidates whose
@@ -68,6 +70,64 @@ TCFG = tconfig.SystemConfig(
     camera=tconfig.CameraConfig(fx=320.0, fy=320.0, cx=256.0, cy=128.0, bf=160.0, width=512,
                                 height=256),
     orb=tconfig.OrbConfig(max_keypoints=512))
+
+
+def corrected_like_the_port(mp):
+    """Give the reference package's loop correction the port's two repairs,
+    faults of the reference ported corrected:
+
+    - the essential-graph solve's Levenberg-Marquardt damping
+      (``optim/pose_graph.py::LM_DAMPING``): the reference damps by 1e-3 of
+      the diagonal at every step, and its 15 steps then leave part of a
+      loop's correction undone (``tests/test_torch_loop_reference.py``);
+    - the engine keeps its velocity across a correction (``StereoSlam.
+      _dispatch_verify``): the reference resets it to the identity;
+    - a frame's logged pose, the one published, is the pose its step
+      returns (``StereoSlam._step``): the reference logs it before an
+      adoption, a correction or the GBA's merge moves the map and the
+      tracker with it.
+
+    Patched alike, the two packages run the same algorithm.
+    ``correct_loop`` and ``verify_and_apply`` are jitted: fresh copies are
+    traced with the new solve, and the reference's engine and closer call
+    them through the module."""
+    import inspect
+    import re
+    import textwrap
+
+    src = inspect.getsource(jpg.optimize_pose_graph)
+    assert src.count("1e-3 * diag") == 1
+    solve_ns = dict(vars(jpg))
+    exec(src.replace("1e-3 * diag", f"{tpg.LM_DAMPING!r} * diag"), solve_ns)
+    loop_ns = dict(vars(jloop), optimize_pose_graph=solve_ns["optimize_pose_graph"])
+    for fn in (jloop.correct_loop, jloop.verify_and_apply):
+        exec(inspect.getsource(fn), loop_ns)
+    mp.setattr(jpg, "optimize_pose_graph", solve_ns["optimize_pose_graph"])
+    for name in ("optimize_pose_graph", "correct_loop", "verify_and_apply"):
+        mp.setattr(jloop, name, loop_ns[name])
+    src, n = re.subn(r"self\.velocity = jnp\.where\(\s*valid, jnp\.eye\(4, dtype=jnp\.float32\), "
+                     r"self\.velocity\s*\)", "pass",
+                     textwrap.dedent(inspect.getsource(jslam.StereoSlam._dispatch_verify)))
+    assert n == 1
+    slam_ns = dict(vars(jslam))
+    exec(src, slam_ns)
+    mp.setattr(jslam.StereoSlam, "_dispatch_verify", slam_ns["_dispatch_verify"])
+    step = jslam.StereoSlam._step
+
+    def published(self, cur):
+        T = step(self, cur)
+        if T is not None and self.trajectory:
+            self.trajectory[-1] = T
+        return T
+
+    mp.setattr(jslam.StereoSlam, "_step", published)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_corrected_like_the_port():
+    with pytest.MonkeyPatch.context() as mp:
+        corrected_like_the_port(mp)
+        yield
 
 
 def _np_tree(tree):
@@ -667,3 +727,86 @@ def test_pending_gba_does_not_undo_a_correction(closure, valid, monkeypatch):
         slam._service_gba()
         assert slam.pending_gba is None
         np.testing.assert_allclose(slam.map.kf_T_cw[cur].numpy(), T_after_ref, atol=5e-3)
+
+
+def test_the_engine_keeps_its_velocity_across_a_correction():
+    """A valid verdict rebases the tracked pose onto the corrected keyframe
+    and keeps the velocity, the last frame-to-frame motion, which a
+    correction of the world leaves as it was (the reference resets it to the
+    identity: ``corrected_like_the_port``)."""
+    import test_torch_cuda as card
+
+    c = card.ring_closure()
+    slam = card.port_engine(c)
+    cur = c["det"][0]
+    slam.T_cw = slam.map.kf_T_cw[cur].clone()
+    slam.velocity = tlie.exp_se3(torch.tensor([0.0, 0.0, -1.06, 0.0, 0.03, 0.0]))
+    before = slam.velocity.clone()
+    slam._dispatch_verify(c["det"])
+    slam._try_harvest_loop(force=True)
+    assert slam.loops_closed == 1
+    assert torch.equal(slam.velocity, before)
+    # the frame sat on the keyframe, and sits on its corrected pose now
+    _close(slam.T_cw, slam.map.kf_T_cw[cur], 1e-5)
+    assert (slam.map.kf_T_cw[cur] - c["map"].kf_T_cw[cur]).abs().max() > 0.05
+
+
+def test_the_tracker_rides_the_gba_merge():
+    """The post-loop GBA's merge moves the map; the tracked pose keeps its
+    place relative to its reference keyframe, as at a mapping stage's
+    adoption (the reference leaves it where it was)."""
+    import test_torch_cuda as card
+
+    c = card.ring_closure()
+    slam = card.port_engine(c)
+    cur = c["det"][0]
+    slam._dispatch_verify(c["det"])
+    slam._try_harvest_loop(force=True)
+    slam.last_kf_slot = cur
+    offset = tlie.exp_se3(torch.tensor([0.1, 0.0, 0.5, 0.0, 0.02, 0.0]))
+    slam.T_cw = offset @ slam.map.kf_T_cw[cur]
+    before = slam.map.kf_T_cw[cur].clone()
+    while slam.pending_gba is not None:
+        slam._service_gba()
+    assert (slam.map.kf_T_cw[cur] - before).abs().max() > 1e-4      # the merge moved it
+    _close(slam.T_cw @ tlie.inv_T(slam.map.kf_T_cw[cur]), offset, 1e-5)
+
+
+@pytest.mark.parametrize("valid", [True, False])
+def test_the_correction_waits_for_a_landed_valid_verdict(valid, monkeypatch):
+    """The card's order, the verdict landing after its dispatch (the CPU's
+    lands at once): until it lands the map is left as it was and no
+    correction is dispatched; a valid verdict that lands while a mapping
+    stage is in flight waits for the stage, then its correction is adopted
+    and the closure counted; a declined one (a stale candidate id)
+    dispatches none and frees the pipeline."""
+    import test_torch_cuda as card
+
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import host
+
+    c = card.ring_closure()
+    slam = card.port_engine(c)
+    cur, cur_id, cand, cand_id = c["det"]
+    det = (cur, cur_id, cand, cand_id if valid else cand_id + 1)
+    landed, applied, inner = [False], [], tslam.apply_loop
+    monkeypatch.setattr(host.HostFetch, "done", lambda self: landed[0])
+    monkeypatch.setattr(tslam, "apply_loop", lambda *a: applied.append(a) or inner(*a))
+    before = slam.map.kf_T_cw.clone()
+    slam._dispatch_verify(det)
+    slam._try_harvest_loop()
+    assert slam._verifying() and not applied
+    assert torch.equal(slam.map.kf_T_cw, before)
+    slam._kf_pending = {}                     # a mapping stage in flight
+    landed[0] = True
+    slam._try_harvest_loop()
+    if not valid:
+        assert not applied and not slam._verifying() and slam.loops_closed == 0
+        assert torch.equal(slam.map.kf_T_cw, before)
+        return
+    assert slam._correct_todo is not None and not applied
+    assert torch.equal(slam.map.kf_T_cw, before)
+    slam._kf_pending = None                   # the stage adopted
+    slam._try_harvest_loop()
+    assert len(applied) == 1 and slam.loops_closed == 1 and not slam._verifying()
+    assert slam.pending_gba is not None
+    assert (slam.map.kf_T_cw[cur] - before[cur]).abs().max() > 0.05

@@ -57,7 +57,7 @@ from opendlv_perception_vision_orbslam2_tpu_torch.optim import pnp as tpnp
 from opendlv_perception_vision_orbslam2_tpu_torch.utils import config as tconfig
 from opendlv_perception_vision_orbslam2_tpu_torch.utils import trajectory as ttraj
 from opendlv_perception_vision_orbslam2_tpu_torch.utils.convert import from_jax_numpy
-from test_torch_loop import _KeyChain
+from test_torch_loop import _KeyChain, corrected_like_the_port
 
 torch.set_num_threads(2)
 
@@ -96,6 +96,7 @@ def reference_run(drive):
     frames, _ = drive
     mp = pytest.MonkeyPatch()
     mp.setattr(jgba, "IncrementalGBA", functools.partial(jgba.IncrementalGBA, sharded=False))
+    corrected_like_the_port(mp)
     verified = []
     inner = jloop.verify_and_apply
 
@@ -166,7 +167,12 @@ def test_loop_slam_slice_matches_reference(drive, reference_run, monkeypatch):
     closed_at = []
     for i, cur in enumerate(frames):
         loops = slam.loops_closed
-        poses.append(slam._step(from_jax_numpy(_np_tree(cur))).numpy())
+        T_step = slam._step(from_jax_numpy(_np_tree(cur)))
+        # the pose published (the logged one) is the one the step returns,
+        # also where a forced adoption, the correction or the GBA's merge
+        # moved the map after the frame was tracked
+        assert torch.equal(slam.trajectory[-1], T_step), f"frame {i}"
+        poses.append(T_step.numpy())
         assert slam.n_keyframes == ref["n_kf"][i], f"frame {i}"
         assert not slam.lost
         if slam.loops_closed != loops:

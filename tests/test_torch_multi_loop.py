@@ -79,7 +79,7 @@ from test_torch_cuda import (
     CHUNKS_BEFORE_GROWTH, CHUNKS_BEFORE_PAUSE, LIFECYCLE_FIELDS, N_OUTER, _bits, lifecycle,
     pause_check, port_engine, ring_closure,
 )
-from test_torch_loop import _KeyChain
+from test_torch_loop import _KeyChain, corrected_like_the_port
 
 torch.set_num_threads(2)
 
@@ -108,6 +108,7 @@ def _jax_tree(tree, module):
 def _reference_lifecycle(c, mp):
     """The lifecycle on the reference engine, its GBA on two devices."""
     mp.setattr(jax, "local_device_count", lambda: WORLD)
+    corrected_like_the_port(mp)
     try:
         ref = jslam.StereoSlam(ring.CFG, enable_relocalization=False)
         ref.map, ref.db = _jax_tree(c["map"], jms), _jax_tree(c["db"], jkfdb)
@@ -339,6 +340,8 @@ def _reference_drive(frames, monkeypatch, devices: int):
 
     with monkeypatch.context() as mp:
         mp.setattr(jax, "local_device_count", lambda: devices)
+        corrected_like_the_port(mp)
+        inner = jloop.verify_and_apply
         mp.setattr(jloop, "verify_and_apply", noted)
         mp.setattr(jgba, "IncrementalGBA", Noted)
         ref = jslam.StereoSlam(JCFG)

@@ -287,3 +287,40 @@ def test_port_slam_accuracy_bounds():
     assert far.sum() > 30
     d = np.linalg.norm(pts[far][:, None, :] - world.points[None, :, :], axis=-1)
     assert np.median(d.min(axis=1) / pts[far][:, 2]) < 0.04
+
+
+def test_a_deferred_decision_inserts_the_frame_its_stats_certify():
+    """In the deferred schedule the stats handled while frame k is tracked
+    are frame k - 1's, and the keyframe they call for is frame k - 1 itself,
+    with the bindings it was tracked with (less any a mapping stage adopted
+    since culled), not the frame before it; a synchronous decision inserts
+    the frame just tracked.  An RGB-D drive on the CPU (the port alone), a
+    keyframe due every frame, so that the engine passes 5 keyframes and
+    defers some decisions."""
+    cfg = tconfig.SystemConfig(
+        camera=tconfig.CameraConfig(**CAM_CFG), orb=tconfig.OrbConfig(**ORB),
+        tracking=tconfig.TrackingConfig(max_frames=1, th_depth=35.0, depth_map_factor=1.0),
+        camera_type="rgbd", max_keyframes=32, max_map_points=16384)
+    grays, depths, _, _ = tsyn.render_rgbd_sequence(cfg, n_frames=20, n_points=900, seed=5,
+                                                    step=0.6)
+    slam = tslam.StereoSlam(cfg, enable_loop_closing=False, device="cpu")
+    inserted, dispatch = [], slam._dispatch_keyframe
+
+    def noted(frame, bindings):
+        # frame_idx is k + 1 while frame k is tracked
+        inserted.append((slam.frame_idx - 1, slam._pipeline_healthy,
+                         int(round(10 * float(frame.timestamp))), bindings))
+        return dispatch(frame, bindings)
+
+    slam._dispatch_keyframe = noted
+    tracked = {}
+    for i in range(len(grays)):
+        slam.process_rgbd(grays[i], depths[i], i * 0.1)
+        tracked[i] = slam.last_bindings
+    deferred = [x for x in inserted if x[1]]
+    assert deferred and len(deferred) < len(inserted)
+    for k, healthy, made_from, bindings in inserted:
+        assert made_from == (k - 1 if healthy else k), (k, healthy, made_from)
+        if healthy:
+            kept = bindings >= 0
+            assert torch.equal(bindings[kept], tracked[made_from][kept])

@@ -15,6 +15,19 @@ program writes into it, on the CPU.
   the engine's pipeline is healthy, each with its ``slam.decision_wait``;
   one ``service.send`` a Geolocation; fps.txt's latencies are the
   ``service.track`` spans' lengths.
+- A stereo frame's front end holds one ``frontend.stereo_match`` inside its
+  ``frontend.process``.
+- Loop closing and the post-loop GBA, called directly on
+  ``tests/test_torch_cuda.py``'s ring (the synchronous closer over its
+  keyframes, then the engine's verdict and GBA on the closure): a
+  ``loop.detect`` span at each dispatch and each harvest, one
+  ``loop.nominated.<channel>`` count a nomination (``bow`` or ``geo``), a
+  ``loop.verify`` span and a ``loop.verified`` count a verification, and
+  ``loop.closed`` once, for the closure; the engine dispatches the
+  correction, a ``loop.correct`` span, after the valid verdict's
+  verification, and its harvest is a ``loop.apply`` span holding its two
+  counts; each chunk of
+  the GBA a ``gba.chunk`` span and its merge one ``gba.merge``.
 """
 
 import time
@@ -228,3 +241,85 @@ def test_fps_txt_latencies_are_the_service_track_spans(drive):
     ttraj.write_fps_file(str(want), drive["latencies"], drive["map_sizes"])
     assert (drive["dir"] / "fps.txt").read_bytes() == want.read_bytes()
     assert len(np.unique(drive["latencies"])) > 1
+
+
+def _named(records, kind, name):
+    return [r for r in records if isinstance(r, kind) and r.name == name]
+
+
+def test_a_stereo_frame_matches_its_eyes_inside_the_front_end():
+    from opendlv_perception_vision_orbslam2_tpu_torch.models.frontend import process_stereo
+
+    cfg = tconfig.SystemConfig(camera=tconfig.CameraConfig(**CAM), orb=tconfig.OrbConfig(**ORB))
+    lefts, rights, _, _ = tsyn.render_stereo_sequence(cfg, n_frames=1, n_points=900, seed=5)
+    t0 = time.perf_counter_ns()
+    process_stereo(torch.from_numpy(lefts[0]).float(), torch.from_numpy(rights[0]).float(), cfg)
+    recs = trace.records(since_ns=t0)
+    (front,) = _named(recs, trace.Span, "frontend.process")
+    (match,) = _named(recs, trace.Span, "frontend.stereo_match")
+    assert front.start_ns <= match.start_ns <= match.end_ns <= front.end_ns
+
+
+@pytest.fixture(scope="module")
+def loop_records():
+    """The records of the ring's synchronous closer and of the engine's
+    verdict and GBA on its closure, with the closer's detections."""
+    import test_torch_cuda as card
+
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import loop_closing as lc
+
+    dets, harvest = [], lc.LoopCloser.harvest_detect
+
+    def keep(self, pending):
+        dets.append(harvest(self, pending))
+        return dets[-1]
+
+    t0 = time.perf_counter_ns()
+    lc.LoopCloser.harvest_detect = keep
+    try:
+        c = card.ring_closure()
+    finally:
+        lc.LoopCloser.harvest_detect = harvest
+    t1 = time.perf_counter_ns()
+    slam = card.port_engine(c)
+    slam._dispatch_verify(c["det"])
+    slam._try_harvest_loop(force=True)
+    gba = slam.pending_gba
+    while slam.pending_gba is not None:
+        slam._service_gba()
+    return {"closer": trace.records(since_ns=t0), "engine": trace.records(since_ns=t1),
+            "t1": t1, "dets": dets, "gba": gba, "loops": slam.loops_closed}
+
+
+def test_the_closer_records_detection_nomination_and_verification(loop_records):
+    recs = [r for r in loop_records["closer"] if r[1] < loop_records["t1"]]
+    dets = loop_records["dets"]
+    nominated = [d for d in dets if d is not None]
+    # each keyframe's dispatch and harvest (the cooldown skips none: the
+    # ring's closer starts 100 keyframes after its last loop)
+    assert len(_named(recs, trace.Span, "loop.detect")) == 2 * len(dets)
+    n_bow = len(_named(recs, trace.Count, "loop.nominated.bow"))
+    n_geo = len(_named(recs, trace.Count, "loop.nominated.geo"))
+    assert n_bow + n_geo == len(nominated) >= 1
+    verifies = _named(recs, trace.Span, "loop.verify")
+    assert len(verifies) == len(_named(recs, trace.Count, "loop.verified")) == len(nominated)
+    (closed,) = _named(recs, trace.Count, "loop.closed")
+    assert verifies[-1].end_ns <= closed.t_ns
+
+
+def test_the_engine_records_the_verdict_and_each_gba_chunk(loop_records):
+    recs = loop_records["engine"]
+    assert loop_records["loops"] == 1
+    (verify,) = _named(recs, trace.Span, "loop.verify")
+    (correct,) = _named(recs, trace.Span, "loop.correct")
+    (apply,) = _named(recs, trace.Span, "loop.apply")
+    assert verify.end_ns <= correct.start_ns and correct.end_ns <= apply.start_ns
+    for name in ("loop.verified", "loop.closed"):
+        (c,) = _named(recs, trace.Count, name)
+        assert apply.start_ns <= c.t_ns <= apply.end_ns
+    chunks = _named(recs, trace.Span, "gba.chunk")
+    (merge,) = _named(recs, trace.Span, "gba.merge")
+    assert len(chunks) == 10 and loop_records["gba"].iters_left == 0
+    assert apply.end_ns <= chunks[0].start_ns
+    assert all(a.end_ns <= b.start_ns for a, b in zip(chunks, chunks[1:]))
+    assert chunks[-1].end_ns <= merge.start_ns
