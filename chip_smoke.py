@@ -745,6 +745,24 @@ def host_spans(obj, names, sink):
         setattr(obj, name, inner)
 
 
+def stage_host_ms(since_ns) -> str:
+    """The mapping stages since ``since_ns`` by how each ran (the one
+    counter inside each ``slam.mapping`` span): count and host ms."""
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import trace
+
+    recs = trace.records(since_ns=since_ns)
+    counts = [r for r in recs if isinstance(r, trace.Count) and r.name.startswith("mapping.")]
+    by_path = {}
+    for s in recs:
+        if isinstance(s, trace.Span) and s.name == "slam.mapping":
+            path = [c.name for c in counts if s.start_ns <= c.t_ns <= s.end_ns]
+            by_path.setdefault(path[0] if len(path) == 1 else "?", []).append(
+                (s.end_ns - s.start_ns) / 1e6)
+    return ", ".join(f"{k.removeprefix('mapping.')} x{len(v)} "
+                     + "/".join(f"{ms:.1f}" for ms in v) + " ms"
+                     for k, v in sorted(by_path.items()))
+
+
 def to_cpu(tree, device="cpu"):
     """Tensors in nested tuples and NamedTuples, moved to the CPU (or to
     ``device``)."""
@@ -4005,8 +4023,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     slam = slam_mod.StereoSlam(cfg, device=dev, **SLAM_OFF)
     reset_launches()
+    t_ns = time.perf_counter_ns()
     slam_lat = lat = drive_slam(slam, lefts, rights, cam.fps)
     slam_launches = read_launches()
+    stages_9 = stage_host_ms(t_ns)
     slam.finish()          # settles the last frame's deferred decision
     if slam.lost:
         raise AssertionError("SLAM: tracking lost at the last frame")
@@ -4027,14 +4047,29 @@ def main() -> int:
           f"{int(m.kf_valid.sum())}) | map points {int(m.pt_valid.sum())} | capacity "
           f"{m.kf_capacity} kf / {m.pt_capacity} pts | peak device memory {peak_gb:.3f} GB | "
           f"ATE {ate_slam:.4f} m (align=False) | launches/frame "
-          f"{per_frame(slam_launches, n_frames)}", flush=True)
+          f"{per_frame(slam_launches, n_frames)} | mapping stages by path, host ms: "
+          f"{stages_9}", flush=True)
 
     # -- 10. where the SLAM time goes ---------------------------------------
     # the layers are timed over frames 0-17; the profiler reads the last 6
     # (steady frames, a keyframe stage among them)
     spans, n_prof_slam = {}, 6
     restore = timed_layers(slam_mod, ("track_frame_with_map", "insert_stage",
-                                      "mapping_stage") + MAPPING_PASSES, spans)
+                                      "mapping_stage"), spans)
+    timed_stage = slam_mod.mapping_stage
+
+    def stage_then_eager(*args, **kwargs):
+        # on the card the stage replays its passes as one CUDA graph: each
+        # pass is timed on an eager run of the same inputs, after the stage
+        out = timed_stage(*args, **kwargs)
+        undo = timed_layers(slam_mod, ("_mapping_stage_eager",) + MAPPING_PASSES, spans)
+        try:
+            slam_mod._mapping_stage_eager(*args, **kwargs)
+        finally:
+            undo()
+        return out
+
+    slam_mod.mapping_stage = stage_then_eager
     try:
         slam = slam_mod.StereoSlam(cfg, device=dev, **SLAM_OFF)
         drive_slam(slam, lefts[:n_frames - n_prof_slam], rights[:n_frames - n_prof_slam],
@@ -4053,7 +4088,8 @@ def main() -> int:
     print("slam_kitti_time: median per call, sync both sides: "
           + " | ".join(f"{n} {med(n)}" for n in ("track_frame_with_map", "insert_stage",
                                                  "mapping_stage"))
-          + " | mapping_stage passes: " + ", ".join(f"{n} {med(n)}" for n in MAPPING_PASSES)
+          + f" | the same stages run eagerly {med('_mapping_stage_eager')}, its passes: "
+          + ", ".join(f"{n} {med(n)}" for n in MAPPING_PASSES)
           + f" | device busy {busy_ms:.2f} ms/frame in {ops:.0f} device ops (torch.profiler, "
           f"frames {n_frames - n_prof_slam}-{n_frames - 1}) | idle share "
           f"{1 - busy_ms / slam_ms:.3f} of {slam_ms:.2f} ms/frame | peak device memory "

@@ -27,6 +27,7 @@ map point slots (-1 = none), the analogue of ``OrbFrame::m_mapPoints``.
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -311,7 +312,25 @@ def mapping_stage(m: MapState, slot, config: SystemConfig, do_triangulate: bool,
     reference: src/mapping.cpp:48-116): point cull -> triangulate -> fuse
     -> local BA -> keyframe cull -> covisibility rebuild, one observation
     count threaded through every pass.  Returns ``(m, aux)`` with
-    ``aux = [n_ref_matches, n_kf_valid, n_pt_valid]``."""
+    ``aux = [n_ref_matches, n_kf_valid, n_pt_valid]``.
+
+    Every shape of the stage is fixed by the map's capacities and its
+    passes by the four flags, and it reads nothing back to the host: on
+    the card it replays a CUDA graph of ``_mapping_stage_eager`` (thousands
+    of kernels), one a key (:func:`_stage_key`), captured at the key's
+    second call; the first runs eagerly, so a key met once (the bootstrap
+    keyframes' pass sets) is never captured.  CPU tensors run the eager
+    stage."""
+    flags = (do_triangulate, do_fuse, do_lba, do_cull)
+    if m.kf_valid.device.type != "cuda":
+        trace.count("mapping.eager")
+        return _mapping_stage_eager(m, slot, config, *flags)
+    return _replay_stage(m, slot, config, flags)
+
+
+def _mapping_stage_eager(m: MapState, slot, config: SystemConfig, do_triangulate: bool,
+                         do_fuse: bool, do_lba: bool, do_cull: bool):
+    """``mapping_stage``'s passes, one launch at a time."""
     mono = config.camera_type == "mono"
     counts = point_observation_counts(m)
     m, counts = cull_points(m, m.next_kf_id - 1, th_obs=2 if mono else 3, counts=counts)
@@ -343,6 +362,83 @@ def mapping_stage(m: MapState, slot, config: SystemConfig, do_triangulate: bool,
     n_ref = torch.sum(bound & m.pt_valid[safe] & (counts_now[safe] >= min_obs))
     aux = torch.stack([n_ref, m.kf_valid.sum(), m.pt_valid.sum()]).to(torch.int32)
     return m, aux
+
+
+#: captured mapping-stage graphs kept, the least recently used dropped first
+MAPPING_GRAPH_CACHE_SIZE = 8
+
+
+class _StageGraph:
+    """``_mapping_stage_eager`` captured for one key: static copies of the
+    map's fields and the slot, the graph, and its outputs in the graph's
+    pool."""
+
+    def __init__(self, m: MapState, slot, config: SystemConfig, flags):
+        # loop-edge fields left None stay None (they are in the key)
+        self.inputs = [None if x is None else x.clone(memory_format=torch.contiguous_format)
+                       for x in (*m, slot)]
+        *fields, s = self.inputs
+        m_in = MapState(*fields)
+        dev = m.kf_valid.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):   # warm-up: library handles and workspaces
+                _mapping_stage_eager(m_in, s, config, *flags)
+            self.graph = torch.cuda.CUDAGraph()
+            # thread_local: the engine's daemon threads may wait on events meanwhile
+            with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                self.outputs = _mapping_stage_eager(m_in, s, config, *flags)
+            torch.cuda.current_stream(dev).wait_stream(side)
+
+    def __call__(self, m: MapState, slot):
+        for dst, src in zip(self.inputs, (*m, slot)):
+            if dst is not None:
+                dst.copy_(src)
+        self.graph.replay()
+        # a later replay overwrites the outputs, and the engine keeps the
+        # returned map (as its map, the GBA's snapshot, a pending stage):
+        # the caller gets copies
+        m_out, aux = self.outputs
+        return MapState(*(None if x is None else x.clone() for x in m_out)), aux.clone()
+
+
+_GRAPHS: OrderedDict = OrderedDict()    # key -> _StageGraph
+_SEEN: OrderedDict = OrderedDict()      # keys run once, eagerly, not yet captured
+
+
+def _stage_key(m: MapState, slot, config: SystemConfig, flags) -> tuple:
+    """What the stage's code depends on as a constant: the device, each
+    field's shape and dtype (the capacities; which loop-edge fields are
+    None), the slot's, the config (hashable, frozen) and the pass flags."""
+    return (m.kf_valid.device, config, flags, (slot.shape, slot.dtype),
+            tuple(None if x is None else (x.shape, x.dtype) for x in m))
+
+
+def _remember(cache: OrderedDict, key, value) -> None:
+    cache[key] = value
+    if len(cache) > MAPPING_GRAPH_CACHE_SIZE:
+        cache.popitem(last=False)
+
+
+def _replay_stage(m: MapState, slot, config: SystemConfig, flags):
+    """The stage on the card: eagerly at a key's first call, captured at
+    its second, replayed from then on.  Each call counts one of
+    ``mapping.eager``, ``mapping.graph_capture`` (a warm-up, the capture
+    and a replay) and ``mapping.graphed`` (a replay alone)."""
+    key = _stage_key(m, slot, config, flags)
+    graph = _GRAPHS.pop(key, None)
+    if graph is None:
+        if _SEEN.pop(key, None) is None:
+            _remember(_SEEN, key, True)
+            trace.count("mapping.eager")
+            return _mapping_stage_eager(m, slot, config, *flags)
+        graph = _StageGraph(m, slot, config, flags)
+        trace.count("mapping.graph_capture")
+    else:
+        trace.count("mapping.graphed")
+    _remember(_GRAPHS, key, graph)
+    return graph(m, slot)
 
 
 def _wide_recovery_program(m: MapState, cur: FrameState, T_guess, generator,

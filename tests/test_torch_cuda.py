@@ -815,6 +815,121 @@ def test_mapping_stage_twice_bit_equal_on_card():
     assert torch.equal(runs[0][1], runs[1][1])
 
 
+_STAGE_MAP = {}
+
+
+def _stage_map():
+    """``(map, slot)`` on the card: test_mapping_stage_twice_bit_equal_on_card's
+    map, built once on the CPU (3 keyframes, local BA behind it)."""
+    if not _STAGE_MAP:
+        from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as slam_mod
+        from opendlv_perception_vision_orbslam2_tpu_torch.utils import synthetic
+
+        cfg = _slam_cfg()
+        lefts, rights, _, _ = synthetic.render_stereo_sequence(cfg, n_frames=16, n_points=500,
+                                                               seed=5, step=0.25)
+        slam = slam_mod.StereoSlam(cfg, enable_loop_closing=False,
+                                   enable_relocalization=False, device="cpu")
+        slam.force_sync_decisions = True
+        i = 0
+        while slam.n_keyframes < 3 and i < 15:
+            slam.process(lefts[i], rights[i], timestamp=i * 0.1)
+            i += 1
+        assert slam.n_keyframes >= 3
+        _STAGE_MAP["m"] = (_to(slam.map, "cuda"),
+                           torch.tensor(slam.last_kf_slot, device="cuda"))
+    return _STAGE_MAP["m"]
+
+
+def _mapping_counts(t0):
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import trace
+
+    out = {}
+    for r in trace.records(since_ns=t0):
+        if isinstance(r, trace.Count) and r.name.startswith("mapping."):
+            out[r.name] = out.get(r.name, 0) + r.n
+    return out
+
+
+def _assert_stage_equal(got, want):
+    (m, aux), (m_ref, aux_ref) = got, want
+    for name, a, b in zip(m_ref._fields, m, m_ref):
+        assert (a is None and b is None) or torch.equal(a, b), name
+    assert torch.equal(aux, aux_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grown", [False, True], ids=["32kf", "128kf"])
+@pytest.mark.parametrize("do_lba", [True, False], ids=["lba", "no_lba"])
+def test_graphed_mapping_stage_equals_eager_on_card(grown, do_lba):
+    """``mapping_stage`` on the card: the first call of a key runs eagerly,
+    the second captures and replays, the third replays; each equals
+    ``_mapping_stage_eager`` on every map field and ``aux`` with
+    ``torch.equal``, in two capacity buckets and with local BA on and off."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import map_state
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as slam_mod
+
+    cfg = _slam_cfg()
+    m, slot = _stage_map()
+    if grown:
+        m = map_state.grow_map(m, 4 * m.kf_capacity, 4 * m.pt_capacity)
+    flags = (True, True, do_lba, True)
+    slam_mod._GRAPHS.clear()
+    slam_mod._SEEN.clear()
+    want = slam_mod._mapping_stage_eager(m, slot, cfg, *flags)
+    t0 = time.perf_counter_ns()
+    runs = [slam_mod.mapping_stage(m, slot, cfg, *flags) for _ in range(3)]
+    assert _mapping_counts(t0) == {"mapping.eager": 1, "mapping.graph_capture": 1,
+                                   "mapping.graphed": 1}
+    for got in runs:
+        _assert_stage_equal(got, want)
+    assert int(want[1][2]) > 100
+    slam_mod._GRAPHS.clear()
+    slam_mod._SEEN.clear()
+
+
+@pytest.mark.cuda
+def test_mapping_graphs_capture_once_a_key_and_keep_held_outputs_on_card():
+    """What one replay returned is unchanged after a later replay of the
+    same key from another map; a key is captured once, and the cache keeps
+    the ``MAPPING_GRAPH_CACHE_SIZE`` most recently used keys."""
+    _require_cuda()
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as slam_mod
+
+    cfg = _slam_cfg()
+    m, slot = _stage_map()
+    flags = (True, True, True, True)
+    slam_mod._GRAPHS.clear()
+    slam_mod._SEEN.clear()
+    t0 = time.perf_counter_ns()
+    for _ in range(2):
+        slam_mod.mapping_stage(m, slot, cfg, *flags)
+    shift = torch.zeros(4, 4, device="cuda")
+    shift[0, 3] = 0.01                      # every keyframe 1 cm along x
+    m2 = m._replace(kf_T_cw=m.kf_T_cw + shift)
+    first = slam_mod.mapping_stage(m, slot, cfg, *flags)
+    held = [x.clone() for x in (*first[0], first[1])]
+    second = slam_mod.mapping_stage(m2, slot, cfg, *flags)
+    for name, a, b in zip(first[0]._fields + ("aux",), (*first[0], first[1]), held):
+        assert torch.equal(a, b), name
+    assert not torch.equal(first[0].kf_T_cw, second[0].kf_T_cw)
+    _assert_stage_equal(second, slam_mod._mapping_stage_eager(m2, slot, cfg, *flags))
+    assert _mapping_counts(t0) == {"mapping.eager": 1, "mapping.graph_capture": 1,
+                                   "mapping.graphed": 2}
+    n = slam_mod.MAPPING_GRAPH_CACHE_SIZE
+    keys = [tuple(bool(k >> b & 1) for b in range(4)) for k in range(1, n + 1)]
+    t0 = time.perf_counter_ns()
+    for k in keys:
+        for _ in range(2):
+            slam_mod.mapping_stage(m, slot, cfg, *k)
+    assert _mapping_counts(t0) == {"mapping.eager": n, "mapping.graph_capture": n}
+    assert len(slam_mod._GRAPHS) == n
+    assert {key[2] for key in slam_mod._GRAPHS} == set(keys)
+    slam_mod._GRAPHS.clear()
+    slam_mod._SEEN.clear()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["blocked", "general"])
 def test_gba_chunk_twice_bit_equal_on_card(layout):

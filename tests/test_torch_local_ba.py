@@ -101,3 +101,26 @@ def test_insert_stage_leaves_its_input(built):
     assert _fields_equal(pm, snapshot), "insert_stage wrote into its input map"
     assert int(occ[0]) == int(np.asarray(maps[3].kf_valid).sum()) + 1
     assert not torch.equal(out.kf_obs_point, pm.kf_obs_point)
+
+
+def test_cpu_mapping_stage_runs_eagerly_and_never_captures(built):
+    """CPU tensors take the eager stage at every call of a key: each counts
+    ``mapping.eager``, none captures or replays a CUDA graph, and the
+    result is ``_mapping_stage_eager``'s."""
+    import time
+
+    from opendlv_perception_vision_orbslam2_tpu_torch.utils import trace
+
+    maps, slots, _, _ = built
+    pm, slot = from_jax_numpy(maps[-1]), torch.tensor(slots[-1])
+    t0 = time.perf_counter_ns()
+    runs = [tslam.mapping_stage(pm, slot, TCFG, True, True, flag, True)
+            for flag in (True, True, False)]
+    counts = {}
+    for r in trace.records(since_ns=t0):
+        if isinstance(r, trace.Count):
+            counts[r.name] = counts.get(r.name, 0) + r.n
+    assert counts == {"mapping.eager": 3}
+    assert not tslam._GRAPHS and not tslam._SEEN
+    ref, ref_aux = tslam._mapping_stage_eager(pm, slot, TCFG, True, True, True, True)
+    assert _fields_equal(runs[1][0], ref) and torch.equal(runs[1][1], ref_aux)

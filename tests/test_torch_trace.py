@@ -226,6 +226,82 @@ def test_each_tracked_frame_solves_its_two_poses_eagerly_on_the_cpu(drive):
         assert not any(isinstance(r, trace.Count) and r.name == name for r in drive["records"])
 
 
+def test_each_mapping_stage_runs_eagerly_on_the_cpu(drive):
+    """Every ``slam.mapping`` span holds one ``mapping.eager`` count; a CPU
+    run captures and replays no graph of the stage."""
+    recs = drive["records"]
+    stages = [r for r in recs if isinstance(r, trace.Span) and r.name == "slam.mapping"]
+    eager = [r for r in recs if isinstance(r, trace.Count) and r.name == "mapping.eager"]
+    assert len(stages) == len(eager) >= 5
+    for s in stages:
+        assert sum(s.start_ns <= c.t_ns <= s.end_ns for c in eager) == 1
+    for name in ("mapping.graphed", "mapping.graph_capture"):
+        assert not any(isinstance(r, trace.Count) and r.name == name for r in recs)
+
+
+class _FakeStageGraph:
+    """Stands in for ``slam._StageGraph`` on the CPU: notes each capture and
+    returns its own outputs on each replay."""
+
+    made = []
+
+    def __init__(self, m, slot, config, flags):
+        self.key = flags
+        _FakeStageGraph.made.append(flags)
+
+    def __call__(self, m, slot):
+        return m, torch.zeros(3, dtype=torch.int32)
+
+
+def test_the_mapping_graph_cache_counts_eager_capture_and_replay(monkeypatch):
+    """``slam._replay_stage``'s bookkeeping, with a stand-in for the
+    capture: a key's first call runs eagerly (``mapping.eager``), its second
+    captures and replays (``mapping.graph_capture``), later ones replay
+    (``mapping.graphed``); each call counts once, each key is captured once, the cache keeps the
+    ``MAPPING_GRAPH_CACHE_SIZE`` most recently used, and a key dropped from
+    it starts again with an eager call."""
+    from collections import OrderedDict
+
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import map_state
+    from opendlv_perception_vision_orbslam2_tpu_torch.models import slam as tslam
+
+    monkeypatch.setattr(tslam, "_GRAPHS", OrderedDict())
+    monkeypatch.setattr(tslam, "_SEEN", OrderedDict())
+    monkeypatch.setattr(tslam, "_StageGraph", _FakeStageGraph)
+    monkeypatch.setattr(tslam, "_mapping_stage_eager",
+                        lambda m, slot, config, *flags: (m, torch.ones(3, dtype=torch.int32)))
+    _FakeStageGraph.made = []
+    cfg = tconfig.SystemConfig()
+    m = map_state.empty_map(4, 8, 2)
+    slot = torch.zeros((), dtype=torch.int64)
+    n = tslam.MAPPING_GRAPH_CACHE_SIZE
+    keys = [tuple(bool(k >> b & 1) for b in range(4)) for k in range(n + 1)]
+
+    def counted(flags):
+        t0 = time.perf_counter_ns()
+        _, aux = tslam._replay_stage(m, slot, cfg, flags)
+        got = sorted(r.name for r in trace.records(since_ns=t0) if isinstance(r, trace.Count))
+        return got, int(aux[0])
+
+    assert counted(keys[0]) == (["mapping.eager"], 1)
+    assert counted(keys[0]) == (["mapping.graph_capture"], 0)
+    assert counted(keys[0]) == (["mapping.graphed"], 0)
+    assert _FakeStageGraph.made == [keys[0]]
+    # another capacity is another key
+    _, aux = tslam._replay_stage(map_state.empty_map(8, 8, 2), slot, cfg, keys[0])
+    assert int(aux[0]) == 1 and len(tslam._GRAPHS) == 1
+    for k in keys[1:]:
+        counted(k)
+        counted(k)
+    assert len(tslam._GRAPHS) == n and len(tslam._SEEN) <= n
+    assert _FakeStageGraph.made == keys
+    # keys[0], the least recently used, was dropped: eager, then captured again
+    assert keys[0] not in {key[2] for key in tslam._GRAPHS}
+    assert counted(keys[0]) == (["mapping.eager"], 1)
+    assert counted(keys[0]) == (["mapping.graph_capture"], 0)
+    assert len(tslam._GRAPHS) == n
+
+
 def test_one_send_span_a_geolocation_and_a_flush_at_shutdown(drive):
     recs = drive["records"]
     sends = [r for r in recs if isinstance(r, trace.Span) and r.name == "service.send"]
